@@ -4,24 +4,49 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. environment: the card's name and power limit, CUDA, nvcc, Triton;
-  2. build the host engine library and the CUDA repeat-unit kernel from the
-     sources in the checkout, timed;
-  3. the kernel against its plain PyTorch twin on the card and against the
-     detector's pure-Python specification (`ops.oracle.get_repeat`, held
-     equal to the JAX package's by the CPU tests), on every input
-     layout (n8, w8 with Ns, w16, ASCII with IUPAC bytes) at the production
-     batch sizes, plus the F1 (k=3 lane-field carry, 256bp CAG/TTC mixtures)
-     and F2 (256bp and 264bp homopolymer) rows; requires 0 mismatches and
-     times kernel and twin per batch (CUDA events, median of 25);
-  4. the main path through the CLI (simulate -> index -> extract -> call)
-     on a planted CAG expansion, an `extract --device cpu` whose bin must be
-     byte-identical, and an extract of a 500k-read WGS-like BAM; the
-     kernel's launch count over this phase must be > 0.
+  2. build the host engine library and the CUDA repeat-unit kernel (every
+     form) from the sources in the checkout, in parallel, timed;
+  3. each kernel form against its plain PyTorch version on the card and,
+     for the detector's forms, against the detector's pure-Python
+     specification (`ops.oracle.get_repeat`, held equal to the JAX
+     package's by the CPU tests); requires 0 mismatches:
+     - pairwise (the default) on every input layout (n8, w8 with Ns, w16,
+       ASCII with IUPAC bytes) at the production batch sizes, plus the F1
+       (k=3 lane-field carry, 256bp CAG/TTC mixtures) and F2 (256bp and
+       264bp homopolymer) rows; times kernel and plain version per batch:
+       the kernel's device time (CUDA events around 10 launches queued back
+       to back, median of 25) and events around one launch, which also
+       count the host's time to issue it; the plain version's events around
+       one call, median of 25;
+     - sorted (STRLING_MODAL_IMPL=sorted) on the same batches and the F6
+       tile (1024x256, every other read ending in 43-52 x AAT, p = 0.5,
+       85 windows at k = 3), with sorted and pairwise times side by side;
+     - packed (2-bit rows + N bitmask: thresholds outside u16) through
+       scan_codes on the card, which must take that entry;
+     - the stage-disabled variants (no_greedy, no_modal, winmin_only) on
+       ASCII and n8 rows, against their plain versions only (a variant is
+       not the detector);
+  4. the paths, each with the launch counts set to 0 just before it and
+     read just after:
+     - the main path through the CLI (simulate -> index -> extract -> call)
+       on a planted CAG expansion, an `extract --device cpu` whose bin must
+       be byte-identical, and an extract of a 500k-read WGS-like BAM whose
+       bin must equal the `--device cpu` one; the pairwise kernel must
+       launch;
+     - the same index + extract and the 500k-read extract in a subprocess
+       with STRLING_MODAL_IMPL=sorted: bed and bins byte-identical to the
+       pairwise run's, and the sorted form must launch;
+     - `index -p -0.05` with --device cuda and --device cpu: beds
+       byte-equal, and the packed form must launch;
+     - the stage tool (`strling_tpu_torch.scripts.exp_kernel_timing`), which
+       prints its table and attribution; every variant must launch. Its n8
+       rows are the variants' kernel times.
 
-The second-to-last line is a JSON object describing the kernel; the last
-line is {"ok": true, "device": {...}}. Everything it generates goes under
-.smoke_cache/ in the checkout. It imports torch, numpy and strling_tpu_torch
-only (whose host I/O is the JAX package's JAX-free code).
+The second-to-last line is a JSON object describing the kernel's forms, each
+entry naming how its times were taken; the last line is
+{"ok": true, "device": {...}}. Everything it generates goes
+under .smoke_cache/ in the checkout. It imports torch, numpy and
+strling_tpu_torch only (whose host I/O is the JAX package's JAX-free code).
 """
 
 from __future__ import annotations
@@ -33,6 +58,8 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -40,8 +67,20 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(ROOT, ".smoke_cache")
 KERNEL_SOURCE = "strling_tpu_torch/ops/csrc/repeat_scan.cu"
-REPLACES = "strling_tpu/ops/kmer_pallas.py:200"
+PALLAS = "strling_tpu/ops/kmer_pallas.py"
 LOCUS = 20000
+VARIANTS = ("no_greedy", "no_modal", "winmin_only")
+#: how `ms` is taken (`ms_one_launch`, where given, is CUDA events around one
+#: launch, which also count the host's time to issue it)
+TIMING = ("device_ms: CUDA events around 10 launches queued behind a "
+          "sleeping kernel, per launch, median of 25")
+#: name in the kernels line -> what it replaces
+FORMS = {
+    "repeat_scan": f"{PALLAS}:200",
+    "repeat_scan[sorted]": f"{PALLAS}:44",
+    "repeat_scan[packed]": f"{PALLAS}:566",
+    **{f"repeat_scan[{v}]": f"{PALLAS}:201" for v in VARIANTS},
+}
 
 
 def say(*a):
@@ -60,14 +99,9 @@ def smi_line() -> str:
 
 def kernel_batch(B: int, L: int):
     """bench.py's _kernel_batch mix: random reads, every 10th a pure STR."""
-    rng = np.random.default_rng(0)
-    alphabet = np.frombuffer(b"ACGT", np.uint8)
-    bases = alphabet[rng.integers(0, 4, (B, L))]
-    units = [b"CAG", b"A", b"AT", b"AAGGG", b"ATTCT"]
-    for i in range(0, B, 10):
-        u = units[i % len(units)]
-        bases[i] = np.frombuffer((u * (L // len(u) + 1))[:L], np.uint8)
-    return bases, np.full(B, L, np.int32)
+    from strling_tpu_torch.scripts.exp_kernel_timing import bench_batch
+
+    return bench_batch(B, L)
 
 
 def with_short_and_n(bases, lengths, seed):
@@ -165,21 +199,28 @@ def phase_env():
         say("triton not installed")
 
 
+def _timed(fn):
+    t0 = time.perf_counter()
+    return fn(), time.perf_counter() - t0
+
+
 def phase_build():
-    say("== 2. build")
+    say("== 2. build (host engine and kernel in parallel)")
     from strling_tpu_torch.io import hostlib
     from strling_tpu_torch.ops import kmer_cuda
 
     missing = hostlib.missing_headers()
     say("host engine: " + (f"compat build, missing {', '.join(missing)}"
                            if missing else "system libdeflate and liblzma"))
-    t0 = time.perf_counter()
-    path = hostlib.load()
-    say(f"host engine library {path} in {time.perf_counter() - t0:.2f}s")
-    t0 = time.perf_counter()
-    path = kmer_cuda.library_path()
-    say(f"repeat_scan kernel {path} in {time.perf_counter() - t0:.2f}s")
-    say(kmer_cuda.build_log.strip() or "(library was already built)")
+    with ThreadPoolExecutor(2) as pool:
+        host = pool.submit(_timed, hostlib.load)
+        kern = pool.submit(_timed, kmer_cuda.library_path)
+        (hpath, ht), (kpath, kt) = host.result(), kern.result()
+    say(f"host engine library {hpath} in {ht:.2f}s")
+    say(f"repeat_scan kernel {kpath} in {kt:.2f}s")
+    log = kmer_cuda.build_log.strip()
+    say("\n".join(ln for ln in log.splitlines() if "registers" in ln
+                  or "spill" in ln) if log else "(library was already built)")
 
 
 def _median_ms(fn, reps=25, warm=3):
@@ -197,92 +238,249 @@ def _median_ms(fn, reps=25, warm=3):
     return statistics.median(times)
 
 
-def phase_kernel():
-    say("== 3. kernel vs plain twin vs oracle")
-    from strling_tpu_torch.ops import kmer as K
-    from strling_tpu_torch.ops import oracle
-    from strling_tpu_torch.ops.kmer_cuda import repeat_scan
+class KernelChecks:
+    """Phase 3: every kernel form against its plain version (and the
+    oracle), with the largest difference and the timings per form."""
 
-    dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(5)
-    max_err = 0
-    timings = {}
+    def __init__(self):
+        from strling_tpu_torch.ops import kmer as K
+        from strling_tpu_torch.ops import kmer_cuda, oracle
 
-    def check(name, bases, lengths, props, want_layout, oracle_rows):
-        nonlocal max_err
-        bases = np.ascontiguousarray(bases)
-        if want_layout == "ascii":
-            te, tp = K._host_thresholds(lengths, props)
-            args = [torch.from_numpy(a).to(dev) for a in (bases, lengths, te, tp)]
-            x, rest = args[0], args[1:]
-        else:
-            payload, layout = K.fuse_payload(bases, lengths, props,
-                                             return_layout=True)
-            if layout != want_layout:
-                raise RuntimeError(f"{name}: layout {layout}, want {want_layout}")
-            x, rest = torch.from_numpy(payload).to(dev), []
-        got = repeat_scan(x, want_layout, *rest)
-        twin = K.repeat_codes_plain(x, want_layout, *rest)
-        torch.cuda.synchronize()
-        got = [t.cpu().numpy() for t in got]
-        twin = [t.cpu().numpy() for t in twin]
-        mism = int(sum((g != w).sum() for g, w in zip(got, twin)))
-        max_err = max(max_err, max(int(np.abs(g.astype(np.int64) - w).max(initial=0))
-                                   for g, w in zip(got, twin)))
-        units = K.unpack_unit_codes(got[0], got[1])
-        bad_oracle = 0
-        for i in oracle_rows:
-            read = bases[i, :lengths[i]].tobytes().decode()
-            if oracle.get_repeat(read, float(props[i])) != (units[i], int(got[2][i])):
-                bad_oracle += 1
-        say(f"{name}: B={len(bases)} L={bases.shape[1]} layout={want_layout} "
-            f"kernel-vs-twin mismatches {mism}, kernel-vs-oracle mismatches "
-            f"{bad_oracle}/{len(oracle_rows)}")
-        if mism or bad_oracle:
-            raise RuntimeError(f"{name}: kernel disagrees")
-        return x, rest
+        self.K, self.oracle, self.kmer_cuda = K, oracle, kmer_cuda
+        self.dev = torch.device("cuda", 0)
+        self.rng = np.random.default_rng(5)
+        self.max_err = Counter()
+        self.timings = {}
 
-    def sample(B, special=()):
-        rows = set(rng.choice(B, size=min(B, 2048), replace=False).tolist())
+    def sample(self, B, special=()):
+        rows = set(self.rng.choice(B, size=min(B, 2048), replace=False).tolist())
         return sorted(rows | set(special))
 
-    for B in (32768, 65536):
+    def inputs(self, bases, lengths, props, layout):
+        """(x, named tensors) for repeat_scan on the card."""
+        K, dev = self.K, self.dev
+        if layout in ("ascii", "packed"):
+            te, tp = K._host_thresholds(lengths, props)
+            named = {"lengths": lengths, "te": te, "tp": tp}
+            if layout == "packed":
+                x, named["nbits"] = K.pack_bases(bases)
+            else:
+                x = bases
+            return (torch.from_numpy(x).to(dev),
+                    {k: torch.from_numpy(v).to(dev) for k, v in named.items()})
+        payload, got = K.fuse_payload(bases, lengths, props, return_layout=True)
+        if got != layout:
+            raise RuntimeError(f"layout {got}, want {layout}")
+        return torch.from_numpy(payload).to(dev), {}
+
+    def compare(self, form, got, plain):
+        torch.cuda.synchronize()
+        got = [t.cpu().numpy() for t in got]
+        plain = [t.cpu().numpy() for t in plain]
+        mism = int(sum((g != w).sum() for g, w in zip(got, plain)))
+        err = max(int(np.abs(g.astype(np.int64) - w).max(initial=0))
+                  for g, w in zip(got, plain))
+        self.max_err[form] = max(self.max_err[form], err)
+        return got, mism
+
+    def oracle_mismatches(self, bases, lengths, props, got, rows):
+        units = self.K.unpack_unit_codes(got[0], got[1])
+        bad = 0
+        for i in rows:
+            read = bases[i, :lengths[i]].tobytes().decode()
+            if self.oracle.get_repeat(read, float(props[i])) != \
+                    (units[i], int(got[2][i])):
+                bad += 1
+        return bad
+
+    def check(self, name, bases, lengths, props, layout, oracle_rows=(),
+              modal="pairwise", variant="full"):
+        """Kernel vs plain (and vs the oracle on `oracle_rows`)."""
+        form = ("repeat_scan" if modal == "pairwise" and variant == "full"
+                else f"repeat_scan[{modal if variant == 'full' else variant}]")
+        bases = np.ascontiguousarray(bases)
+        x, named = self.inputs(bases, lengths, props, layout)
+        kw = dict(modal=modal, variant=variant, **named)
+        got, mism = self.compare(
+            form, self.kmer_cuda.repeat_scan(x, layout, **kw),
+            self.K.repeat_codes_plain(x, layout, **kw))
+        bad = self.oracle_mismatches(bases, lengths, props, got, oracle_rows)
+        say(f"{name}: B={len(bases)} L={bases.shape[1]} layout={layout} "
+            f"modal={modal} variant={variant} kernel-vs-plain mismatches "
+            f"{mism}, kernel-vs-oracle mismatches {bad}/{len(oracle_rows)}")
+        if mism or bad:
+            raise RuntimeError(f"{name}: kernel disagrees")
+        return x, kw
+
+    def time_plain(self, form, key, x, layout, kw, reps=25):
+        """The plain version's ms per batch: CUDA events around one call,
+        median of `reps`."""
+        plain = _median_ms(lambda: self.K.repeat_codes_plain(x, layout, **kw),
+                           reps=reps, warm=1)
+        self.timings.setdefault((form, key), {}).update(
+            plain_ms=plain, plain_timing=f"one call, median of {reps}")
+        return plain
+
+    def time(self, form, key, x, layout, kw, plain_reps=25):
+        """Kernel ms per batch (device time, `device_ms`) and the plain
+        version's (`time_plain`)."""
+        from strling_tpu_torch.scripts.exp_kernel_timing import device_ms
+
+        ms = device_ms({form: lambda: self.kmer_cuda.repeat_scan(
+            x, layout, **kw)})[form]
+        self.timings.setdefault((form, key), {})["ms"] = ms
+        return ms, self.time_plain(form, key, x, layout, kw, plain_reps)
+
+    def pairwise(self):
+        """The default form on every layout."""
+        say("== 3. kernel vs plain version vs oracle: pairwise modal")
+        check, sample = self.check, self.sample
+        for B in (32768, 65536):
+            bases, lengths = kernel_batch(B, 152)
+            props = np.full(B, 0.8)
+            x, kw = check(f"kernel_batch {B}", bases, lengths, props, "n8",
+                          sample(B))
+            ms, plain = self.time("repeat_scan", B, x, "n8", kw)
+            single = _median_ms(lambda: self.kmer_cuda.repeat_scan(x, "n8"))
+            self.timings[("repeat_scan", B)]["ms_one_launch"] = single
+            say(f"n8 {B}x152: kernel {ms:.4f} ms/batch (device time; "
+                f"{single:.4f} around one launch), plain version "
+                f"{plain:.4f} ms/batch (median of 25)")
+            nb, nl = with_short_and_n(bases, lengths, B)
+            check(f"kernel_batch {B} + N", nb, nl, props, "w8", sample(B))
+        bases, lengths = kernel_batch(4096, 256)
+        bases, lengths = with_short_and_n(bases, lengths, 3)
+        check("kernel_batch 4096 L=256", bases, lengths, np.full(4096, 0.8),
+              "w16", sample(4096))
+        iu = bases.copy()
+        iu[3::40, 10] = ord("R")
+        iu[7::40, 60:64] = np.frombuffer(b"YSWK", np.uint8)
+        iu[11::200] = np.frombuffer((b"CAR" * 90)[:256], np.uint8)
+        check("ascii + IUPAC", iu, lengths, np.full(4096, 0.6), "ascii",
+              sample(4096, range(3, 4096, 40)))
+        for L, layout in ((256, "w16"), (248, "n8")):
+            fb, fl = f1_tile(L)
+            check(f"F1 tile L={L}", fb, fl, np.full(1024, 0.8), layout,
+                  range(1024))
+        fb, fl = f2_rows()
+        check("F2 homopolymers", fb, fl, np.full(len(fl), 0.8), "w16",
+              range(len(fl)))
+
+    def sorted_modal(self):
+        say("== 3. sorted modal (STRLING_MODAL_IMPL=sorted)")
+        check, sample = self.check, self.sample
+        for B in (32768, 65536):
+            bases, lengths = kernel_batch(B, 152)
+            props = np.full(B, 0.8)
+            x, kw = check(f"kernel_batch {B}", bases, lengths, props, "n8",
+                          sample(B), modal="sorted")
+            from strling_tpu_torch.scripts.exp_kernel_timing import device_ms
+
+            scan = self.kmer_cuda.repeat_scan
+            ms = device_ms({m: (lambda m=m: scan(x, "n8", modal=m))
+                            for m in ("sorted", "pairwise")})
+            self.timings[("repeat_scan[sorted]", B)] = {"ms": ms["sorted"]}
+            plain = self.time_plain("repeat_scan[sorted]", B, x, "n8", kw,
+                                    reps=5)
+            say(f"n8 {B}x152: sorted kernel {ms['sorted']:.4f} ms/batch vs "
+                f"pairwise kernel {ms['pairwise']:.4f} ms/batch (device "
+                f"times, taking turns); sorted plain version {plain:.4f} "
+                "ms/batch (median of 5)")
+            nb, nl = with_short_and_n(bases, lengths, B)
+            check(f"kernel_batch {B} + N", nb, nl, props, "w8", sample(B),
+                  modal="sorted")
+        bases, lengths = kernel_batch(4096, 256)
+        bases, lengths = with_short_and_n(bases, lengths, 3)
+        check("kernel_batch 4096 L=256 (85 k=3 windows)", bases, lengths,
+              np.full(4096, 0.8), "w16", sample(4096), modal="sorted")
+        for L, layout in ((256, "w16"), (248, "n8")):
+            fb, fl = f1_tile(L)
+            check(f"F1 tile L={L}", fb, fl, np.full(1024, 0.8), layout,
+                  range(1024), modal="sorted")
+        fb, fl = f2_rows()
+        check("F2 homopolymers", fb, fl, np.full(len(fl), 0.8), "w16",
+              range(len(fl)), modal="sorted")
+        from strling_tpu_torch.scripts.exp_kernel_timing import f6_tile
+
+        fb, fl = f6_tile()
+        check("F6 tile p=0.5", fb, fl, np.full(1024, 0.5), "w16", range(1024),
+              modal="sorted")
+
+    def packed(self):
+        """Thresholds outside u16: scan_codes must send the batch as 2-bit
+        rows with an N bitmask."""
+        say("== 3. packed entry (2-bit rows + N bitmask)")
+        K, kc = self.K, self.kmer_cuda
+        B = 32768
+        bases, lengths = kernel_batch(B, 152)
+        props = np.where(np.arange(B) % 2 == 0, -0.05, 1000.0)
+        nb, nl = with_short_and_n(bases, lengths, 17)
+        for name, b, l in (("kernel_batch 32768", bases, lengths),
+                           ("kernel_batch 32768 + N", nb, nl)):
+            if K.fuse_payload(b, l, props) is not None:
+                raise RuntimeError(f"{name}: the payload took the batch")
+            before = kc.launches_by[("packed", "pairwise", "full")]
+            code, ulen, cnt = K.scan_codes(b, l, props, self.dev)
+            if kc.launches_by[("packed", "pairwise", "full")] != before + 1:
+                raise RuntimeError(f"{name}: scan_codes did not launch the "
+                                   f"packed form: {dict(kc.launches_by)}")
+            x, kw = self.inputs(b, l, props, "packed")
+            got = [torch.from_numpy(a) for a in (code, ulen, cnt)]
+            got, mism = self.compare("repeat_scan[packed]", got,
+                                     K.repeat_codes_plain(x, "packed", **kw))
+            rows = self.sample(B)
+            bad = self.oracle_mismatches(b, l, props, got, rows)
+            say(f"{name} through scan_codes: layout=packed, props -0.05 and "
+                f"1000, kernel-vs-plain mismatches {mism}, kernel-vs-oracle "
+                f"mismatches {bad}/{len(rows)}, reported {int((cnt > 0).sum())}")
+            if mism or bad:
+                raise RuntimeError(f"{name}: packed kernel disagrees")
+        ms, plain = self.time("repeat_scan[packed]", B, x, "packed", kw,
+                              plain_reps=5)
+        say(f"packed {B}x152: kernel {ms:.4f} ms/batch, plain version "
+            f"{plain:.4f} ms/batch (median of 5)")
+
+    def variants(self):
+        """The kernels' times come from the stage tool (phase 4), which
+        times every variant at this shape."""
+        say("== 3. stage variants (against their plain versions)")
+        B = 32768
         bases, lengths = kernel_batch(B, 152)
         props = np.full(B, 0.8)
-        x, _ = check(f"kernel_batch {B}", bases, lengths, props, "n8", sample(B))
-        timings[B] = (_median_ms(lambda: repeat_scan(x, "n8")),
-                      _median_ms(lambda: K.repeat_codes_plain(x, "n8")))
-        say(f"n8 {B}x152: kernel {timings[B][0]:.4f} ms/batch, plain twin "
-            f"{timings[B][1]:.4f} ms/batch (median of 25)")
-        nb, nl = with_short_and_n(bases, lengths, B)
-        check(f"kernel_batch {B} + N", nb, nl, props, "w8", sample(B))
+        for v in VARIANTS:
+            self.check(f"kernel_batch {B}", bases, lengths, props, "ascii",
+                       variant=v)
+            x, kw = self.check(f"kernel_batch {B}", bases, lengths, props,
+                               "n8", variant=v)
+            plain = self.time_plain(f"repeat_scan[{v}]", B, x, "n8", kw,
+                                    reps=5)
+            say(f"{v} n8 {B}x152: plain version {plain:.4f} ms/batch "
+                "(median of 5)")
 
-    bases, lengths = kernel_batch(4096, 256)
-    bases, lengths = with_short_and_n(bases, lengths, 3)
-    check("kernel_batch 4096 L=256", bases, lengths, np.full(4096, 0.8),
-          "w16", sample(4096))
-    iu = bases.copy()
-    iu[3::40, 10] = ord("R")
-    iu[7::40, 60:64] = np.frombuffer(b"YSWK", np.uint8)
-    iu[11::200] = np.frombuffer((b"CAR" * 90)[:256], np.uint8)
-    check("ascii + IUPAC", iu, lengths, np.full(4096, 0.6), "ascii",
-          sample(4096, range(3, 4096, 40)))
 
-    for L, layout in ((256, "w16"), (248, "n8")):
-        fb, fl = f1_tile(L)
-        check(f"F1 tile L={L}", fb, fl, np.full(1024, 0.8), layout,
-              range(1024))
-    fb, fl = f2_rows()
-    check("F2 homopolymers", fb, fl, np.full(len(fl), 0.8), "w16",
-          range(len(fl)))
-    return timings, max_err
+def _reset_counts():
+    from strling_tpu_torch.ops import kmer_cuda
+
+    kmer_cuda.launches = 0
+    kmer_cuda.launches_by.clear()
+
+
+def _counts() -> Counter:
+    from strling_tpu_torch.ops import kmer_cuda
+
+    return Counter(kmer_cuda.launches_by)
+
+
+def _same_file(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
 
 
 def phase_main_path(work: str):
     say("== 4. main path: simulate -> index -> extract -> call")
     from strling_tpu_torch import cli
-    from strling_tpu_torch.io import Bam, build_fai, write_fasta
     from strling_tpu_torch.core.extract import extract_native
+    from strling_tpu_torch.io import Bam, build_fai, write_bin, write_fasta
     from strling_tpu_torch.ops import kmer_cuda
 
     rng = np.random.default_rng(2)
@@ -298,8 +496,13 @@ def phase_main_path(work: str):
               "--seed", "42", "--output", sim, "normal:400,50",
               f"chr1:{LOCUS}:CAG_0/120"])
     bam = sim + ".bam"
+    big = os.path.join(CACHE, "bench_250000.bam")
+    if not os.path.exists(big):
+        t0 = time.perf_counter()
+        bench_bam(big, 250_000)
+        say(f"generated {big} in {time.perf_counter() - t0:.1f}s")
 
-    kmer_cuda.launches = 0
+    _reset_counts()
     strbed = os.path.join(work, "ref.str")
     cli.main(["index", "-g", strbed, fa])
     say(f"index: {len(open(strbed).read().splitlines())} regions, kernel "
@@ -326,51 +529,165 @@ def phase_main_path(work: str):
     subprocess.run([sys.executable, "-m", "strling_tpu_torch.cli", "extract",
                     "--device", "cpu", "-f", fa, "-g", strbed, bam, cpu_bin],
                    check=True, cwd=ROOT)
-    if open(binp, "rb").read() != open(cpu_bin, "rb").read():
+    if not _same_file(binp, cpu_bin):
         raise RuntimeError("extract --device cuda and --device cpu bins differ")
     say(f"extract --device cpu bin is byte-identical ({os.path.getsize(binp)} bytes)")
 
-    big = os.path.join(CACHE, "bench_250000.bam")
-    if not os.path.exists(big):
-        t0 = time.perf_counter()
-        bench_bam(big, 250_000)
-        say(f"generated {big} in {time.perf_counter() - t0:.1f}s")
     n_reads = 500_000
     stats = {}
     before = kmer_cuda.launches
     t0 = time.perf_counter()
-    tb, _, _ = extract_native(Bam(big), None, None,
-                              devices=[torch.device("cuda", 0)], stats=stats)
+    big_bam = Bam(big)
+    tb, frag, _ = extract_native(big_bam, None, None,
+                                 devices=[torch.device("cuda", 0)], stats=stats)
     wall = time.perf_counter() - t0
     say(f"e2e extract: {n_reads} reads in {wall:.3f}s = {n_reads / wall:.1f} "
         f"reads/s, treads {len(tb)}, kernel launches {kmer_cuda.launches - before}")
     say(f"e2e attribution: batches={stats['n_batches']} "
         f"h2d={stats['h2d_bytes'] / 1e6:.3f}MB d2h={stats['d2h_bytes'] / 1e6:.3f}MB "
         f"device_wait={stats['wait_s']:.3f}s inflight_scan={stats['scan_s']:.3f}s "
-        f"host_loop={wall - stats['wait_s']:.3f}s")
-    launches = kmer_cuda.launches
-    if launches <= 0:
-        raise RuntimeError("the main path never launched the repeat_scan kernel")
+        f"host_loop={wall - stats['wait_s']:.3f}s max_held={stats['max_held']}")
+    counts = _counts()
+    launches = sum(n for (layout, modal, variant), n in counts.items()
+                   if modal == "pairwise" and variant == "full")
+    if launches <= 0 or launches != sum(counts.values()):
+        raise RuntimeError("the main path did not run on the pairwise "
+                           f"repeat_scan kernel alone: {dict(counts)}")
+    big_bin = os.path.join(work, "big.bin")
+    write_bin(big_bin, tb, frag, big_bam.header_text, 0.8, 40)
+    tb_cpu, frag_cpu, _ = extract_native(Bam(big), None, None,
+                                         devices=[torch.device("cpu")])
+    big_cpu = os.path.join(work, "big_cpu.bin")
+    write_bin(big_cpu, tb_cpu, frag_cpu, big_bam.header_text, 0.8, 40)
+    if not _same_file(big_bin, big_cpu):
+        raise RuntimeError("500k-read extract: cuda and cpu bins differ")
+    say(f"500k-read extract --device cpu bin is byte-identical "
+        f"({os.path.getsize(big_bin)} bytes)")
+    return launches, dict(fa=fa, bam=bam, strbed=strbed, binp=binp, big=big,
+                          big_bin=big_bin)
+
+
+SORTED_SCRIPT = """
+import json, sys
+import torch
+from strling_tpu_torch import cli
+from strling_tpu_torch.core.extract import extract_native
+from strling_tpu_torch.io import Bam, write_bin
+from strling_tpu_torch.ops import kmer, kmer_cuda
+assert kmer.MODAL_IMPL == "sorted", kmer.MODAL_IMPL
+fa, bed, bam, binp, big, big_bin = sys.argv[1:]
+kmer_cuda.launches_by.clear()
+cli.main(["index", "-g", bed, fa])
+cli.main(["extract", "-f", fa, "-g", bed, bam, binp])
+b = Bam(big)
+tb, frag, _ = extract_native(b, None, None, devices=[torch.device("cuda", 0)])
+write_bin(big_bin, tb, frag, b.header_text, 0.8, 40)
+print(json.dumps([[list(k), n] for k, n in kmer_cuda.launches_by.items()]))
+"""
+
+
+def phase_sorted_path(work: str, p: dict) -> int:
+    say("== 4. sorted modal on the main path (STRLING_MODAL_IMPL=sorted, "
+        "subprocess)")
+    out = {k: os.path.join(work, f"sorted_{k}") for k in ("str", "bin", "big")}
+    env = dict(os.environ, STRLING_MODAL_IMPL="sorted")
+    proc = subprocess.run(
+        [sys.executable, "-c", SORTED_SCRIPT, p["fa"], out["str"], p["bam"],
+         out["bin"], p["big"], out["big"]],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, text=True, check=True)
+    counts = Counter({tuple(k): n for k, n in
+                      json.loads(proc.stdout.strip().splitlines()[-1])})
+    for name, a, b in (("index bed", out["str"], p["strbed"]),
+                       ("simulated sample bin", out["bin"], p["binp"]),
+                       ("500k-read bin", out["big"], p["big_bin"])):
+        if not _same_file(a, b):
+            raise RuntimeError(f"sorted modal: {name} differs from the "
+                               "pairwise run's")
+        say(f"sorted modal: {name} byte-identical to the pairwise run's (and "
+            f"so to --device cpu) ({os.path.getsize(a)} bytes)")
+    launches = sum(n for (_, modal, _), n in counts.items() if modal == "sorted")
+    say(f"sorted path launches: {dict(counts)}")
+    if launches <= 0 or launches != sum(counts.values()):
+        raise RuntimeError("the sorted path did not run on the sorted form "
+                           f"alone: {dict(counts)}")
     return launches
+
+
+def phase_packed_path(work: str, p: dict) -> int:
+    say("== 4. packed entry on the main path: index -p -0.05")
+    from strling_tpu_torch import cli
+
+    beds = {d: os.path.join(work, f"neg_{d}.str") for d in ("cuda", "cpu")}
+    _reset_counts()
+    cli.main(["index", "-p", "-0.05", "-g", beds["cuda"], p["fa"]])
+    counts = _counts()
+    cli.main(["index", "--device", "cpu", "-p", "-0.05", "-g", beds["cpu"],
+              p["fa"]])
+    if not _same_file(beds["cuda"], beds["cpu"]):
+        raise RuntimeError("index -p -0.05: cuda and cpu beds differ")
+    n = len(open(beds["cuda"]).read().splitlines())
+    launches = sum(c for (layout, _, _), c in counts.items() if layout == "packed")
+    say(f"index -p -0.05: {n} regions, bed byte-equal to --device cpu; "
+        f"launches {dict(counts)}")
+    if launches <= 0:
+        raise RuntimeError("index -p -0.05 did not launch the packed form")
+    return launches
+
+
+def phase_stage_tool():
+    """Returns the launches by variant and the tool's {(entry, row): ms}."""
+    say("== 4. stage tool: python -m strling_tpu_torch.scripts.exp_kernel_timing")
+    from strling_tpu_torch.scripts import exp_kernel_timing
+
+    _reset_counts()
+    results = exp_kernel_timing.main([])
+    counts = _counts()
+    launches = {v: sum(n for (_, _, variant), n in counts.items()
+                       if variant == v) for v in VARIANTS}
+    say(f"stage tool launches by variant: {launches}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a variant never launched: {launches}")
+    return launches, results
 
 
 def main():
     phase_env()
     phase_build()
-    timings, max_err = phase_kernel()
+    checks = KernelChecks()
+    checks.pairwise()
+    checks.sorted_modal()
+    checks.packed()
+    checks.variants()
     os.makedirs(CACHE, exist_ok=True)
     work = os.path.join(CACHE, "work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    launches = phase_main_path(work)
+    launches = {}
+    launches["repeat_scan"], paths = phase_main_path(work)
+    launches["repeat_scan[sorted]"] = phase_sorted_path(work, paths)
+    launches["repeat_scan[packed]"] = phase_packed_path(work, paths)
+    stage_launches, stage_ms = phase_stage_tool()
+    for v, n in stage_launches.items():
+        launches[f"repeat_scan[{v}]"] = n
+        checks.timings[(f"repeat_scan[{v}]", 32768)]["ms"] = stage_ms[("n8", v)]
     say(smi_line())
-    say(json.dumps({"kernels": [{
-        "name": "repeat_scan", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": timings[32768][0], "plain_ms": timings[32768][1],
-        "shape": "32768x152 n8",
-        "ms_65536": timings[65536][0], "plain_ms_65536": timings[65536][1],
-    }]}))
+    kernels = []
+    for name, replaces in FORMS.items():
+        t = checks.timings[(name, 32768)]
+        entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": checks.max_err[name], "ms": t["ms"],
+                 "plain_ms": t["plain_ms"],
+                 "shape": "32768x152 " + ("packed" if "packed" in name
+                                          else "n8"),
+                 "timing": TIMING, "plain_timing": t["plain_timing"]}
+        if "ms_one_launch" in t:
+            entry["ms_one_launch"] = t["ms_one_launch"]
+        if (name, 65536) in checks.timings:
+            t = checks.timings[(name, 65536)]
+            entry["ms_65536"], entry["plain_ms_65536"] = t["ms"], t["plain_ms"]
+        kernels.append(entry)
+    say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,11 +13,17 @@ import time
 
 import torch
 
+from strling_tpu.io.extract_native import native_frag_hist
 from strling_tpu.utils import fraglen
 from strling_tpu.utils.options import Options
 from strling_tpu_torch.core.genome_index import GenomeIndex, genome_repeats
 from strling_tpu_torch.io import Bam
-from strling_tpu_torch.io.extract_native import NativeExtractor, peek_max_len
+from strling_tpu_torch.io.extract_native import (
+    TEE_SKIP,
+    TEE_TAKE,
+    NativeExtractor,
+    peek_max_len,
+)
 
 
 def scan_devices(device: str = "cuda", devices: str | None = None):
@@ -57,6 +63,9 @@ def extract_native(bam, fasta: str | None, genome_repeats_path: str | None,
     The fragment-length pre-pass (utils.nim:86-111) rides the engine's own
     record stream: feeds hold until its 2M-record budget is consumed (scans
     keep flying meanwhile) and the median lands just before the first feed.
+    Once the held batches carry `io.extract_native.HOLD_RECORDS` records,
+    the histogram comes from its own pass over the file
+    (`native_frag_hist`) and feeding resumes.
     The wire width is probed from the first 10k records; if a later read
     turns out longer (it would have been truncated on the wire), extraction
     runs again at the exact width."""
@@ -77,16 +86,25 @@ def extract_native(bam, fasta: str | None, genome_repeats_path: str | None,
     ne = NativeExtractor(bam, proportion_repeat, min_mapq, 0,
                          genome_index=genome_index, Lmax=Lcap, frag_tee=True)
 
-    def set_median():
-        median = fraglen.median(ne.get_hist()[0])
+    def set_median(hist):
+        median = fraglen.median(hist)
         ne.set_median(median)
         opts.median_fragment_length = median
         if verbose:
             print(f"Calculated median fragment length:{median}",
                   file=sys.stderr)
 
-    tb = ne.run(devs, pre_feed_hook=set_median, stats=stats,
-                hold_drain=lambda: not ne.hist_ready)
+    def median_from_own_pass():
+        # too many records held waiting for the tee (few pass the
+        # histogram's predicate): the standalone pass over a second handle
+        # reads the same records with the same predicate and budget, so the
+        # median, and the bin, are the ones the tee would have given
+        second = Bam(bam.path, fasta=getattr(bam, "fasta", None))
+        set_median(native_frag_hist(second, TEE_SKIP, TEE_TAKE))
+
+    tb = ne.run(devs, pre_feed_hook=lambda: set_median(ne.get_hist()[0]),
+                stats=stats, hold_drain=lambda: not ne.hist_ready,
+                on_hold_cap=median_from_own_pass)
     frag_dist, max_read_len = ne.get_hist()
     # NativeExtractor caps at min(bam.Lmax, Lcap): the effective width is
     # what the retry guard compares against

@@ -23,7 +23,19 @@ from strling_tpu.io.extract_native import peek_max_len
 from strling_tpu_torch.io import hostlib
 from strling_tpu_torch.ops.kmer import scan_codes, scan_payload
 
-__all__ = ["NativeExtractor", "peek_max_len"]
+__all__ = ["HOLD_RECORDS", "NativeExtractor", "TEE_SKIP", "TEE_TAKE",
+           "peek_max_len"]
+
+#: the fragment-histogram tee's budget, as the reference's NativeExtractor sets
+#: it (and `native_frag_hist` by default): skip TEE_SKIP records, then count
+#: TEE_TAKE that pass its predicate (primary proper pairs with
+#: 0 <= isize <= 4095: about half the records of paired WGS, one mate of
+#: each pair)
+TEE_SKIP, TEE_TAKE = 100_000, 2_000_000
+#: records that feeds may hold while the tee fills: its need where a
+#: quarter of the records pass (a held record costs the engine ~110 bytes
+#: plus its name)
+HOLD_RECORDS = TEE_SKIP + 4 * TEE_TAKE
 
 
 class NativeExtractor(_ref.NativeExtractor):
@@ -51,7 +63,8 @@ class NativeExtractor(_ref.NativeExtractor):
 
     def run(self, devices: list[torch.device], depth: int = 8,
             pre_feed_hook=None, stats: dict | None = None,
-            hold_drain=None) -> TreadBatch:
+            hold_drain=None, max_held_records: int = HOLD_RECORDS,
+            on_hold_cap=None) -> TreadBatch:
         """Pipelined loop. Each batch comes out of the engine in the fused
         wire layout; `depth` worker threads scan batches (round-robin over
         `devices`) while the main thread decodes and pairs the next one.
@@ -60,14 +73,29 @@ class NativeExtractor(_ref.NativeExtractor):
 
         `stats`, when given, accumulates transfer attribution: n_batches,
         h2d/d2h bytes, summed in-flight scan seconds (overlapped across
-        workers), and total feed-wait seconds on the main thread.
+        workers), total feed-wait seconds on the main thread, and the peak
+        number of batches (`max_held`) and records (`max_held_records`)
+        held unfed.
         `hold_drain`, when it returns True, holds feeds (scans keep flying)
-        until the fragment histogram the feeds need is ready."""
+        until the fragment histogram the feeds need is ready. Once the held
+        batches carry `max_held_records` records, `on_hold_cap` is called
+        once in place of `pre_feed_hook` (it must give the engine its median
+        another way) and feeding resumes."""
         if not devices:
             raise ValueError("run needs at least one torch device")
+        if hold_drain is not None and on_hold_cap is None:
+            raise ValueError("hold_drain needs on_hold_cap for when the "
+                             "held records reach max_held_records")
+        if max_held_records < 1:
+            raise ValueError("max_held_records must be at least 1, got "
+                             f"{max_held_records}")
         depth = max(depth, 2 * len(devices))
+        # feeds hold from the first batch on, so every batch in flight
+        # while they do is held
+        held = held_records = 0
         if stats is not None:
-            for key in ("n_batches", "h2d_bytes", "d2h_bytes"):
+            for key in ("n_batches", "h2d_bytes", "d2h_bytes", "max_held",
+                        "max_held_records"):
                 stats.setdefault(key, 0)
             stats.setdefault("scan_s", 0.0)   # summed over workers (overlaps)
             stats.setdefault("wait_s", 0.0)   # main-thread feed-drain wait
@@ -107,7 +135,12 @@ class NativeExtractor(_ref.NativeExtractor):
                         inflight.append(EMPTY)
                 done = n_records == 0 and bool(self.lib.sio_ex_done(self._e))
                 if not done and hold_drain is not None and hold_drain():
-                    continue
+                    held = len(inflight)
+                    held_records += n_records
+                    if held_records < max_held_records:
+                        continue
+                    on_hold_cap()
+                    hold_drain = pre_feed_hook = None
                 limit = 0 if done else depth - 1
                 while len(inflight) > limit:
                     if pre_feed_hook is not None:
@@ -126,4 +159,8 @@ class NativeExtractor(_ref.NativeExtractor):
                     break
         if pre_feed_hook is not None:
             pre_feed_hook()
+        if stats is not None:
+            stats["max_held"] = max(stats["max_held"], held)
+            stats["max_held_records"] = max(stats["max_held_records"],
+                                            held_records)
         return self.treads()

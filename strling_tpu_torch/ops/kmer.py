@@ -26,6 +26,7 @@ computed on the host in float64 so the device logic is pure integer.
 
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
@@ -33,6 +34,33 @@ import torch
 
 KS = (2, 3, 4, 5, 6)
 DECODE_ASCII = np.frombuffer(b"ACTG", dtype=np.uint8)
+
+#: the k >= 3 modal forms: "pairwise" (the running argmax of occurrence
+#: counts) and "sorted" (a sort of each read's window keys). Both give the
+#: reference's answer.
+MODALS = ("pairwise", "sorted")
+#: the modal form used when a caller names none, read once at import from
+#: the JAX package's own switch, as strling_tpu/ops/kmer_pallas.py:41 reads it
+MODAL_IMPL = ("sorted" if os.environ.get("STRLING_MODAL_IMPL", "pairwise")
+              == "sorted" else "pairwise")
+#: stage-disabled detectors, for attributing the kernel's time only
+#: (kmer_pallas.py:201-214): "no_greedy" replaces the exact recount by the
+#: modal count, "no_modal" the modal code by the first valid window's code
+#: (and its count by the number of valid windows), "winmin_only" does both
+VARIANTS = ("full", "no_greedy", "no_modal", "winmin_only")
+
+
+def resolve_modal(modal: str | None) -> str:
+    modal = MODAL_IMPL if modal is None else modal
+    if modal not in MODALS:
+        raise ValueError(f"modal must be one of {MODALS}, got {modal!r}")
+    return modal
+
+
+def check_variant(variant: str) -> str:
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    return variant
 
 # ------------------------------------------------------------ numpy helpers
 
@@ -225,6 +253,53 @@ def _modal_code_by_value(wmin: torch.Tensor, valid: torch.Tensor, k: int):
     return code, M
 
 
+def _modal_code_sorted(wmin: torch.Tensor, valid: torch.Tensor):
+    """Same contract as _modal_code, by sorting (the form of the JAX
+    package's _modal_sorted, kmer_pallas.py:44, with room for any window
+    index). Each read's keys code << s | j sort so that equal codes form
+    runs in window order: a run's length is the code's total and its last
+    key holds the code's last occurrence. The winner has the largest total
+    and, among ties, the earliest last occurrence (CountTable's
+    reach-max-first rule, kmer_pallas.py:48-55). Invalid windows get one
+    code past every real one (codes are < 4096) and never win."""
+    B, W = wmin.shape
+    dev = wmin.device
+    if W == 0:
+        return (torch.full((B,), -1, dtype=torch.int32, device=dev),
+                torch.zeros(B, dtype=torch.int32, device=dev))
+    shift = max(1, (W - 1).bit_length())
+    idx = torch.arange(W, dtype=torch.int64, device=dev)
+    key = torch.where(valid, (wmin.to(torch.int64) << shift) | idx,
+                      (4096 << shift) | idx)
+    ks = torch.sort(key, dim=1).values
+    code_s = ks >> shift
+    differs = code_s[:, 1:] != code_s[:, :-1]
+    edge = torch.ones((B, 1), dtype=torch.bool, device=dev)
+    first = torch.cat([edge, differs], dim=1)
+    last_of_run = torch.cat([differs, edge], dim=1)
+    run_start = torch.cummax(torch.where(first, idx, 0), dim=1).values
+    total = idx - run_start + 1
+    last = ks & ((1 << shift) - 1)
+    score = torch.where(last_of_run & (code_s < 4096),
+                        total * (W + 1) - last, -1)
+    j = score.argmax(dim=1, keepdim=True)
+    found = score.gather(1, j)[:, 0] >= 0
+    code = torch.where(found, code_s.gather(1, j)[:, 0], -1)
+    M = torch.where(found, total.gather(1, j)[:, 0], 0)
+    return code.to(torch.int32), M.to(torch.int32)
+
+
+def _first_window_code(wmin: torch.Tensor, valid: torch.Tensor):
+    """The stage-disabled modal (kmer_pallas.py:328-334): the first valid
+    window's code and the number of valid windows; -1 and 0 with none."""
+    B, W = wmin.shape
+    if W == 0:
+        return (torch.full((B,), -1, dtype=torch.int32, device=wmin.device),
+                torch.zeros(B, dtype=torch.int32, device=wmin.device))
+    count = valid.sum(dim=1, dtype=torch.int32)  # valid windows are a prefix
+    return torch.where(valid[:, 0], wmin[:, 0], -1).to(torch.int32), count
+
+
 def _decode_ascii(code: torch.Tensor, k: int) -> torch.Tensor:
     """Decode [B] codes to [B, k] ASCII bytes; code -1 decodes as 'G'*k
     (Nim: imax = -1 becomes all-ones bits, utils.nim:197,246)."""
@@ -263,12 +338,18 @@ def _exact_count(bases, lengths, kmer_ascii, k: int):
 
 
 def get_repeat_device(bases: torch.Tensor, lengths: torch.Tensor,
-                      thresh_early: torch.Tensor, thresh_prop: torch.Tensor):
+                      thresh_early: torch.Tensor, thresh_prop: torch.Tensor,
+                      *, modal: str | None = None, variant: str = "full"):
     """Plain tensor detector. bases [B, L] uint8 ASCII, lengths [B] int32,
-    thresh_* [B, 5] int32 (host float64 floors).
+    thresh_* [B, 5] int32 (host float64 floors). `modal` picks the k >= 3
+    modal form (None: MODAL_IMPL); `variant` a stage-disabled detector
+    (VARIANTS; "full" is the detector).
 
     Returns (unit_ascii [B, 6] uint8, unit_len [B] int32, count [B] int32).
     """
+    modal = resolve_modal(modal)
+    do_modal = check_variant(variant) in ("full", "no_greedy")
+    do_greedy = variant in ("full", "no_modal")
     B, L = bases.shape
     dev = bases.device
     lengths = lengths.to(torch.int32)
@@ -282,13 +363,18 @@ def get_repeat_device(bases: torch.Tensor, lengths: torch.Tensor,
     kmer_counts, exact_counts, kmer_ascii_by_k = [], [], []
     for k in KS:
         wmin, valid = _window_min_rotation(codes, lengths, k)
-        if (1 << (2 * k)) < wmin.shape[1]:
+        if not do_modal:
+            code, cnt = _first_window_code(wmin, valid)
+        elif k > 2 and modal == "sorted":
+            code, cnt = _modal_code_sorted(wmin, valid)
+        elif (1 << (2 * k)) < wmin.shape[1]:
             code, cnt = _modal_code_by_value(wmin, valid, k)
         else:
             code, cnt = _modal_code(wmin, valid)
         ka = _decode_ascii(code, k)
         kmer_counts.append(cnt)
-        exact_counts.append(_exact_count(bases, lengths, ka, k))
+        exact_counts.append(_exact_count(bases, lengths, ka, k)
+                            if do_greedy else cnt)
         kmer_ascii_by_k.append(ka)
 
     # k-selection state machine (utils.nim:243-269)
@@ -373,15 +459,23 @@ def _unit_to_code_device(unit: torch.Tensor, unit_len: torch.Tensor):
 
 
 def repeat_codes_plain(x: torch.Tensor, layout: str, lengths=None, te=None,
-                       tp=None):
+                       tp=None, *, nbits=None, modal: str | None = None,
+                       variant: str = "full"):
     """Plain form of the kernel's contract: fused payload rows (`layout` in
-    n8/w8/w16) or ASCII rows (`layout` "ascii" with lengths/te/tp) ->
-    (code, len, count) int32 tensors."""
+    n8/w8/w16), ASCII rows (`layout` "ascii" with lengths/te/tp) or 2-bit
+    rows with their N bitmask (`layout` "packed": pack_bases' pair, with
+    lengths/te/tp) -> (code, len, count) int32 tensors. `modal` and
+    `variant` as for get_repeat_device."""
     if layout == "ascii":
         bases = x
+    elif layout == "packed":
+        if nbits is None:
+            raise ValueError("the packed layout needs its N bitmask (nbits)")
+        bases = unpack_ascii(x, nbits)
     else:
         bases, lengths, te, tp = unfuse_payload(x, layout)
-    unit, ulen, cnt = get_repeat_device(bases, lengths, te, tp)
+    unit, ulen, cnt = get_repeat_device(bases, lengths, te, tp, modal=modal,
+                                        variant=variant)
     return _unit_to_code_device(unit, ulen), ulen, cnt
 
 
@@ -416,30 +510,32 @@ def _stream(device: torch.device):
     return streams[key]
 
 
-def _scan_on(device: torch.device, host_arrays, layout: str):
-    """Stage numpy inputs onto `device`, run the scan, return numpy
-    (code, len, count). Blocking; thread-safe."""
+def _scan_on(device: torch.device, layout: str, x: np.ndarray, **named):
+    """Stage numpy inputs (rows `x` and repeat_scan's named tensors) onto
+    `device`, run the scan, return numpy (code, len, count). Blocking;
+    thread-safe."""
     from strling_tpu_torch.ops.kmer_cuda import repeat_scan
 
+    arrays = {"x": x, **named}
     if device.type != "cuda":
-        ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in host_arrays]
-        return tuple(t.numpy() for t in repeat_scan(ts[0], layout, *ts[1:]))
-    n = len(host_arrays[0])
-    total = sum(a.nbytes for a in host_arrays)
+        ts = {k: torch.from_numpy(np.ascontiguousarray(a))
+              for k, a in arrays.items()}
+        return tuple(t.numpy() for t in repeat_scan(layout=layout, **ts))
+    n = len(x)
+    total = sum(a.nbytes for a in arrays.values())
     pin_in = _pinned("pin_in", total)
     pin_out = _pinned("pin_out", 12 * n)
     stream = _stream(device)
     with torch.cuda.device(device), torch.cuda.stream(stream):
-        dev_in, off = [], 0
-        for a in host_arrays:
+        dev_in, off = {}, 0
+        for name, a in arrays.items():
             a = np.ascontiguousarray(a)
             view = pin_in[off: off + a.nbytes]
             view.numpy()[:] = a.reshape(-1).view(np.uint8)
-            t = view.to(device, non_blocking=True).view(
+            dev_in[name] = view.to(device, non_blocking=True).view(
                 torch.from_numpy(a[:0]).dtype).reshape(a.shape)
-            dev_in.append(t)
             off += a.nbytes
-        outs = repeat_scan(dev_in[0], layout, *dev_in[1:])
+        outs = repeat_scan(layout=layout, **dev_in)
         host_out = pin_out[: 12 * n].view(torch.int32).reshape(3, n)
         for i, o in enumerate(outs):
             host_out[i].copy_(o, non_blocking=True)
@@ -456,21 +552,24 @@ def scan_payload(payload: np.ndarray, n_rows: int, layout: str, device):
     if n_rows == 0:
         z = np.zeros(0, np.int32)
         return z, z, z
-    return _scan_on(torch.device(device), [payload[:n_rows]], layout)
+    return _scan_on(torch.device(device), layout, payload[:n_rows])
 
 
 def _scan_ascii(bases, lengths, props, device):
     te, tp = _host_thresholds(lengths, props)
-    return _scan_on(torch.device(device),
-                    [np.ascontiguousarray(bases, np.uint8),
-                     np.asarray(lengths, np.int32), te, tp], "ascii")
+    return _scan_on(torch.device(device), "ascii",
+                    np.ascontiguousarray(bases, np.uint8),
+                    lengths=np.asarray(lengths, np.int32), te=te, tp=tp)
 
 
 def scan_codes(bases: np.ndarray, lengths: np.ndarray, props: np.ndarray,
                device):
     """Detect repeat units of [B, L] ASCII rows on `device`; returns numpy
-    int32 (code, len, count). ACGTN-only batches travel as a fused 2-bit
-    payload; others (IUPAC bytes, L%8) take the kernel's ASCII entry."""
+    int32 (code, len, count). The entry is chosen as the JAX package's
+    scan_codes_dispatch chooses it (ops/kmer.py:532-541): ACGTN-only
+    batches travel as a fused 2-bit payload; those the payload refuses
+    (thresholds outside u16, L > 65535) as 2-bit rows with an N bitmask
+    (the "packed" layout); the rest (IUPAC bytes, L%8) as ASCII rows."""
     lengths = np.asarray(lengths, np.int32)
     props = np.asarray(props, np.float64)
     if len(lengths) == 0:
@@ -479,7 +578,12 @@ def scan_codes(bases: np.ndarray, lengths: np.ndarray, props: np.ndarray,
     payload, layout = fuse_payload(bases, lengths, props, return_layout=True)
     if payload is not None:
         return scan_payload(payload, len(payload), layout, device)
-    return _scan_ascii(bases, lengths, props, device)
+    pk = pack_bases(bases)
+    if pk is None:
+        return _scan_ascii(bases, lengths, props, device)
+    te, tp = _host_thresholds(lengths, props)
+    return _scan_on(torch.device(device), "packed", pk[0], nbits=pk[1],
+                    lengths=lengths, te=te, tp=tp)
 
 
 def get_repeat_batch(bases: np.ndarray, lengths: np.ndarray,

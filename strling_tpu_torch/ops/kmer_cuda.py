@@ -1,10 +1,10 @@
 """Wrapper of the hand-written CUDA repeat-unit scan (csrc/repeat_scan.cu).
 
 The kernel replaces the Pallas TPU kernel of `strling_tpu/ops/kmer_pallas.py`
-(see the header of the .cu file). It is compiled with nvcc for sm_90a into a
-shared library with a plain C interface, at first use, into `_build/` next to
-this file (hash-cached on the source and the flags), and loaded with ctypes.
-Nothing is built or loaded at import time.
+in all of its forms (see the header of the .cu file). It is compiled with
+nvcc for sm_90a into a shared library with a plain C interface, at first
+use, into `_build/` next to this file (hash-cached on the source and the
+flags), and loaded with ctypes. Nothing is built or loaded at import time.
 
 `repeat_scan` is the one entry: on a CPU tensor it runs the plain PyTorch
 form (`ops.kmer.repeat_codes_plain`); on a CUDA tensor it launches the kernel
@@ -19,26 +19,38 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 
 import torch
 
 from strling_tpu_torch.ops.kmer import (
     KS,
+    VARIANTS,
+    check_variant,
     payload_geometry,
     repeat_codes_plain,
+    resolve_modal,
 )
 
 SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "repeat_scan.cu")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_LAYOUT_IDS = {"ascii": 0, "n8": 1, "w8": 2, "w16": 3}
+_LAYOUT_IDS = {"ascii": 0, "n8": 1, "w8": 2, "w16": 3, "packed": 4}
+_MODAL_IDS = {"pairwise": 0, "sorted": 1}
+_VARIANT_IDS = {v: i for i, v in enumerate(VARIANTS)}
 #: longest row the kernel takes: each thread keeps its L/3 window codes in
 #: shared memory, and 32 threads of 2 bytes each must fit in 227 KB
 MAX_L = 10_000
+#: longest row the sorted modal takes: each thread sorts its L/3 window keys
+#: as int32, padded to a power of two, and 32 threads' keys must fit in
+#: 227 KB, so at most 1024 keys
+SORTED_MAX_L = 3 * 1024 + 2
 
 #: kernel launches since import (or since a caller last reset it)
 launches = 0
+#: the same launches by form: (layout, modal, variant) -> count
+launches_by: Counter = Counter()
 _lock = threading.Lock()
 _lib = None
 #: nvcc's output of the build that produced the loaded library (ptxas -v)
@@ -83,16 +95,17 @@ def _load():
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p,
             ]
             _lib = lib
     return _lib
 
 
-def _check(t, name: str, dtype, shape, device):
+def _check(t, name: str, dtype, shape, device, layout: str):
     if t is None:
-        raise ValueError(f"{name} is required for ASCII rows")
+        raise ValueError(f"{name} is required for {layout} rows")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -103,16 +116,25 @@ def _check(t, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def repeat_scan(x: torch.Tensor, layout: str, lengths=None, te=None, tp=None):
+def repeat_scan(x: torch.Tensor, layout: str, lengths=None, te=None, tp=None,
+                *, nbits=None, modal: str | None = None,
+                variant: str = "full"):
     """Repeat-unit scan -> (code, len, count) int32 tensors of shape [B].
 
-    x: fused payload rows [B, W] uint8 with `layout` in n8/w8/w16, or ASCII
-    rows [B, L] uint8 with layout "ascii" and lengths [B] int32, te/tp
-    [B, 5] int32 on the same device.
+    x: fused payload rows [B, W] uint8 with `layout` in n8/w8/w16; ASCII
+    rows [B, L] uint8 with layout "ascii"; or 2-bit rows [B, L/4] uint8 with
+    layout "packed" and their N bitmask `nbits` [B, L/8] uint8 (pack_bases'
+    pair). ASCII and packed rows take lengths [B] int32 and te/tp [B, 5]
+    int32 on the same device. `modal` is "pairwise" or "sorted" (None:
+    ops.kmer.MODAL_IMPL, from STRLING_MODAL_IMPL); `variant` one of
+    ops.kmer.VARIANTS (stage-disabled forms, for attribution only).
     """
     global launches
+    modal = resolve_modal(modal)
+    check_variant(variant)
     if x.device.type == "cpu":
-        return repeat_codes_plain(x, layout, lengths, te, tp)
+        return repeat_codes_plain(x, layout, lengths, te, tp, nbits=nbits,
+                                  modal=modal, variant=variant)
     if x.device.type != "cuda":
         raise ValueError(f"repeat_scan runs on cpu or cuda tensors, not {x.device}")
     if layout not in _LAYOUT_IDS:
@@ -121,20 +143,32 @@ def repeat_scan(x: torch.Tensor, layout: str, lengths=None, te=None, tp=None):
         raise ValueError(f"rows must be 2-D, got shape {tuple(x.shape)}")
     B, width = x.shape
     dev = x.device
-    _check(x, "rows", torch.uint8, (B, width), dev)
-    if layout == "ascii":
-        L = width
-        _check(lengths, "lengths", torch.int32, (B,), dev)
-        _check(te, "te", torch.int32, (B, len(KS)), dev)
-        _check(tp, "tp", torch.int32, (B, len(KS)), dev)
+    _check(x, "rows", torch.uint8, (B, width), dev, layout)
+    if layout in ("ascii", "packed"):
+        L = width if layout == "ascii" else 4 * width
+        for name, t, shape in (("lengths", lengths, (B,)),
+                               ("te", te, (B, len(KS))),
+                               ("tp", tp, (B, len(KS)))):
+            _check(t, name, torch.int32, shape, dev, layout)
         ptrs = [lengths.data_ptr(), te.data_ptr(), tp.data_ptr()]
+        if layout == "packed":
+            if L % 8:
+                raise ValueError(f"packed rows of {L} bases: L must be a "
+                                 "multiple of 8")
+            _check(nbits, "nbits", torch.uint8, (B, L // 8), dev, layout)
     else:
         L, meta_off, meta_w = payload_geometry(width, layout)
         if L <= 0 or L % 8 or meta_off + meta_w != width:
             raise ValueError(f"row width {width} is not a {layout} payload")
         ptrs = [None, None, None]
+    if layout != "packed" and nbits is not None:
+        raise ValueError(f"nbits applies to packed rows, not {layout}")
     if L > MAX_L:
         raise ValueError(f"rows of {L} bases exceed the kernel's {MAX_L}")
+    if (modal == "sorted" and variant in ("full", "no_greedy")
+            and L > SORTED_MAX_L):
+        raise ValueError(f"rows of {L} bases exceed the sorted modal's "
+                         f"limit of {SORTED_MAX_L} bases")
     code = torch.empty(B, dtype=torch.int32, device=dev)
     ulen = torch.empty(B, dtype=torch.int32, device=dev)
     cnt = torch.empty(B, dtype=torch.int32, device=dev)
@@ -144,10 +178,14 @@ def repeat_scan(x: torch.Tensor, layout: str, lengths=None, te=None, tp=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.repeat_scan_launch(
-            x.data_ptr(), B, width, _LAYOUT_IDS[layout], L, *ptrs,
+            x.data_ptr(), B, width, _LAYOUT_IDS[layout], L,
+            nbits.data_ptr() if layout == "packed" else None, *ptrs,
+            _MODAL_IDS[modal], _VARIANT_IDS[variant],
             code.data_ptr(), ulen.data_ptr(), cnt.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"repeat_scan launch failed: CUDA error {rc}")
+        raise RuntimeError(f"repeat_scan launch failed ({layout}, {modal}, "
+                           f"{variant}, L={L}): CUDA error {rc}")
     with _lock:
         launches += 1
+        launches_by[(layout, modal, variant)] += 1
     return code, ulen, cnt

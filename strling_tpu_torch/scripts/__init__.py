@@ -1,0 +1,1 @@
+"""Experiment tools of the port (run with `python -m`)."""

@@ -88,6 +88,7 @@ def test_port_never_imports_jax(tmp_path):
         for m in pkgutil.walk_packages(strling_tpu_torch.__path__,
                                        "strling_tpu_torch."):
             importlib.import_module(m.name)
+        import strling_tpu_torch.scripts.exp_kernel_timing
         from strling_tpu_torch.cli import main
         main(["extract", "--device", "cpu", {bam!r}, {str(tmp_path / 'x.bin')!r}])
         assert not any(k == "jax" or k.startswith("jax.")

@@ -138,3 +138,109 @@ def test_scan_payload_threads_on_card(cuda_device):
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             np.testing.assert_array_equal(a, b)
+
+
+def _ascii_args(bases, lengths, props, dev):
+    te, tp = TK._host_thresholds(lengths, props)
+    return [torch.from_numpy(a).to(dev) for a in (bases, lengths, te, tp)]
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,with_n", [(152, False), (152, True), (256, True),
+                                      (264, True)])
+def test_sorted_kernel_matches_plain_and_oracle(cuda_device, L, with_n):
+    """The sorted modal (k = 3 has 85 windows at 256bp, past the JAX form's
+    64-window field) on payload rows and the ASCII entry."""
+    reads, bases, lengths, props = _reads(L + 7, 1500, L, with_n)
+    payload, layout = TK.fuse_payload(bases, lengths, props, return_layout=True)
+    x = torch.from_numpy(payload).to(cuda_device)
+    got = repeat_scan(x, layout, modal="sorted")
+    _same(got, TK.repeat_codes_plain(x, layout, modal="sorted"))
+    _same(got, repeat_scan(x, layout, modal="pairwise"))
+    args = _ascii_args(bases, lengths, props, cuda_device)
+    _same(repeat_scan(args[0], "ascii", *args[1:], modal="sorted"),
+          TK.repeat_codes_plain(args[0], "ascii", *args[1:], modal="sorted"))
+    _oracle_check(reads[:300], props, *(t.cpu().numpy() for t in got))
+
+
+@pytest.mark.cuda
+def test_sorted_kernel_f6_tile(cuda_device):
+    """1024 reads of 256bp, every other one ending in 43-52 x AAT, p = 0.5:
+    every read as the oracle says."""
+    from strling_tpu_torch.scripts.exp_kernel_timing import f6_tile
+
+    bases, lengths = f6_tile()
+    props = np.full(1024, 0.5)
+    payload, layout = TK.fuse_payload(bases, lengths, props, return_layout=True)
+    got = repeat_scan(torch.from_numpy(payload).to(cuda_device), layout,
+                      modal="sorted")
+    reads = [bases[i].tobytes().decode() for i in range(1024)]
+    _oracle_check(reads, props, *(t.cpu().numpy() for t in got))
+
+
+@pytest.mark.cuda
+def test_sorted_kernel_row_limit(cuda_device):
+    """The sorted form takes rows up to SORTED_MAX_L bases (1024 keys a
+    thread, 32 threads a block) and refuses longer ones by name; the
+    pairwise form takes them."""
+    from strling_tpu_torch.ops import kmer_cuda
+
+    reads, bases, lengths, props = _reads(3, 40, kmer_cuda.SORTED_MAX_L, False)
+    args = _ascii_args(bases, lengths, props, cuda_device)
+    _same(repeat_scan(args[0], "ascii", *args[1:], modal="sorted"),
+          repeat_scan(args[0], "ascii", *args[1:], modal="pairwise"))
+    wide = np.zeros((40, kmer_cuda.SORTED_MAX_L + 1), np.uint8)
+    wide[:, :bases.shape[1]] = bases
+    args = _ascii_args(wide, lengths, props, cuda_device)
+    with pytest.raises(ValueError, match=str(kmer_cuda.SORTED_MAX_L)):
+        repeat_scan(args[0], "ascii", *args[1:], modal="sorted")
+    repeat_scan(args[0], "ascii", *args[1:], modal="pairwise")
+
+
+@pytest.mark.cuda
+def test_packed_entry_matches_plain(cuda_device):
+    """2-bit rows with an N bitmask and thresholds outside u16, on the
+    kernel and through scan_codes."""
+    from strling_tpu_torch.ops import kmer_cuda
+
+    reads, bases, lengths, props = _reads(12, 2000, 152, True)
+    props[::2] = -0.05
+    props[1::4] = 1000.0
+    packed, nbits = TK.pack_bases(bases)
+    te, tp = TK._host_thresholds(lengths, props)
+    x, nb, *rest = [torch.from_numpy(a).to(cuda_device)
+                    for a in (packed, nbits, lengths, te, tp)]
+    for modal in ("pairwise", "sorted"):
+        _same(repeat_scan(x, "packed", *rest, nbits=nb, modal=modal),
+              TK.repeat_codes_plain(x, "packed", *rest, nbits=nb, modal=modal))
+    kmer_cuda.launches_by.clear()
+    for g, w in zip(TK.scan_codes(bases, lengths, props, cuda_device),
+                    TK.scan_codes(bases, lengths, props, "cpu")):
+        np.testing.assert_array_equal(g, w)
+    assert [k[0] for k in kmer_cuda.launches_by] == ["packed"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["no_greedy", "no_modal", "winmin_only"])
+def test_variant_kernels_match_plain(cuda_device, variant):
+    reads, bases, lengths, props = _reads(20, 1500, 152, True)
+    payload, layout = TK.fuse_payload(bases, lengths, props, return_layout=True)
+    x = torch.from_numpy(payload).to(cuda_device)
+    _same(repeat_scan(x, layout, variant=variant),
+          TK.repeat_codes_plain(x, layout, variant=variant))
+    args = _ascii_args(bases, lengths, props, cuda_device)
+    for modal in ("pairwise", "sorted"):
+        _same(repeat_scan(args[0], "ascii", *args[1:], variant=variant,
+                          modal=modal),
+              TK.repeat_codes_plain(args[0], "ascii", *args[1:],
+                                    variant=variant, modal=modal))
+    packed, nbits = TK.pack_bases(bases)
+    x, nb = (torch.from_numpy(a).to(cuda_device) for a in (packed, nbits))
+    _same(repeat_scan(x, "packed", *args[1:], nbits=nb, variant=variant),
+          TK.repeat_codes_plain(x, "packed", *args[1:], nbits=nb,
+                                variant=variant))

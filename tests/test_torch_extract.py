@@ -253,6 +253,59 @@ def test_small_batches_many_workers(str_bam):
     assert stats["d2h_bytes"] == 12 * n_rows
 
 
+@pytest.mark.parametrize("cap", [1, 100])
+def test_hold_cap_falls_back_to_own_hist_pass(cap, tmp_path, monkeypatch):
+    """F3: few records pass the fragment histogram's predicate (9 pairs in
+    10 are not proper pairs), so the tee is ready only at the end of the
+    stream and every batch would be held. With small batches the held
+    records reach `max_held_records`; past it the median comes from
+    native_frag_hist and the bin is still the reference's."""
+    import functools
+
+    from strling_tpu_torch.core import extract as port_extract
+    from strling_tpu_torch.io.extract_native import NativeExtractor
+
+    rng = np.random.default_rng(21)
+    recs = []
+    for i in range(300):
+        pos = 1000 + i * 41
+        s1 = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 100)])
+        s2 = (["CAG", "AT", "AAGGG", "A"][i % 4] * 40)[:100] if i % 3 == 0 \
+            else "".join(np.array(list("ACGT"))[rng.integers(0, 4, 100)])
+        f1, f2 = (99, 147) if i % 10 == 0 else (65, 129)
+        isz = 250 + i % 50
+        recs.append(BamRecord(f"h{i}", f1, 0, pos, 60, "100M", 0,
+                              pos + isz - 100, isz, s1))
+        recs.append(BamRecord(f"h{i}", f2, 0, pos + isz - 100, 60, "100M", 0,
+                              pos, -isz, s2))
+    recs.sort(key=lambda r: r.pos)
+    path = str(tmp_path / "held.bam")
+    write_bam(path, HEADER, TARGETS, recs)
+    monkeypatch.setattr(NativeExtractor, "run", functools.partialmethod(
+        NativeExtractor.run, max_held_records=cap))
+    monkeypatch.setattr(port_extract, "NativeExtractor", functools.partial(
+        NativeExtractor, batch_records=32, rows_per_batch=8))
+    own_passes = []
+    real_hist = port_extract.native_frag_hist
+    monkeypatch.setattr(port_extract, "native_frag_hist",
+                        lambda *a: own_passes.append(a[1:]) or real_hist(*a))
+    stats = {}
+    bam = PortBam(path)
+    tb, frag, opts = extract_native(bam, None, None, devices=CPU,
+                                    stats=stats)
+    assert own_passes == [(100_000, 2_000_000)]
+    # the batch that reaches the cap is the last one held
+    assert cap <= stats["max_held_records"] < cap + 32
+    assert stats["max_held"] >= -(-cap // 32)
+    assert stats["n_batches"] > 2 * stats["max_held"]
+    rtb, rfrag, ropts = ref_extract_native(Bam(path), None, None)
+    np.testing.assert_array_equal(frag, rfrag)
+    assert opts.median_fragment_length == ropts.median_fragment_length > 0
+    got = _bin_bytes(str(tmp_path / "port.bin"), tb, frag, bam)
+    want = _bin_bytes(str(tmp_path / "ref.bin"), rtb, rfrag, bam)
+    assert got == want and len(tb) > 0
+
+
 def test_stats_attribution(str_bam):
     stats = {}
     extract_native(PortBam(str_bam), None, None, devices=CPU, stats=stats)
