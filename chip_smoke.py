@@ -5,22 +5,25 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. environment: the card's name and power limit, CUDA, nvcc, Triton;
   2. build the host engine library and the CUDA repeat-unit kernel (every
-     form) from the sources in the checkout, in parallel, timed;
+     form) from the sources in the checkout, in parallel, timed, with
+     ptxas's registers and shared memory per form;
   3. each kernel form against its plain PyTorch version on the card and,
      for the detector's forms, against the detector's pure-Python
      specification (`ops.oracle.get_repeat`, held equal to the JAX
      package's by the CPU tests); requires 0 mismatches:
-     - pairwise (the default) on every input layout (n8, w8 with Ns, w16,
-       ASCII with IUPAC bytes) at the production batch sizes, plus the F1
-       (k=3 lane-field carry, 256bp CAG/TTC mixtures) and F2 (256bp and
-       264bp homopolymer) rows; times kernel and plain version per batch:
+     - pairwise (the default; one warp per read) on every input layout
+       (n8, w8 with Ns, w16, ASCII with IUPAC bytes) at 4096 rows (an
+       extract batch), 32768 and 65536 rows, plus the F1 (k=3 lane-field
+       carry, 256bp CAG/TTC mixtures), F2 (256bp and 264bp homopolymer) and
+       F6 rows; times kernel and plain version per batch:
        the kernel's device time (CUDA events around 10 launches queued back
        to back, median of 25) and events around one launch, which also
        count the host's time to issue it; the plain version's events around
        one call, median of 25;
-     - sorted (STRLING_MODAL_IMPL=sorted) on the same batches and the F6
-       tile (1024x256, every other read ending in 43-52 x AAT, p = 0.5,
-       85 windows at k = 3), with sorted and pairwise times side by side;
+     - sorted (STRLING_MODAL_IMPL=sorted; one thread per read) on the same
+       batches and the F6 tile (1024x256, every other read ending in 43-52
+       x AAT, p = 0.5, 85 windows at k = 3), with sorted and pairwise times
+       side by side;
      - packed (2-bit rows + N bitmask: thresholds outside u16) through
        scan_codes on the card, which must take that entry;
      - the stage-disabled variants (no_greedy, no_modal, winmin_only) on
@@ -39,14 +42,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      - `index -p -0.05` with --device cuda and --device cpu: beds
        byte-equal, and the packed form must launch;
      - the stage tool (`strling_tpu_torch.scripts.exp_kernel_timing`), which
-       prints its table and attribution; every variant must launch. Its n8
-       rows are the variants' kernel times.
+       prints its table and the detector's stage split from the kernel's
+       clocked form (whose outputs must equal the plain version's); every
+       variant and the clocked form must launch. Its n8 rows are the
+       variants' kernel times.
 
 The second-to-last line is a JSON object describing the kernel's forms, each
-entry naming how its times were taken; the last line is
-{"ok": true, "device": {...}}. Everything it generates goes
-under .smoke_cache/ in the checkout. It imports torch, numpy and
-strling_tpu_torch only (whose host I/O is the JAX package's JAX-free code).
+entry naming its design as the launcher reported it for that form's launches
+in this run (warp_per_read or thread_per_read), how its times were taken and
+its bound (`scripts/exp_kernel_timing.scan_bound`: the larger of the bytes
+over the card's HBM rate and the integer operations, for the k that the
+selection state machine reads on these inputs, over its int32 rate); the
+detector's entry adds its stage split on n8 rows. The last line is {"ok":
+true, "device": {...}}. Everything it
+generates goes under .smoke_cache/ in the checkout. It imports torch, numpy
+and strling_tpu_torch only, with `strling_tpu` and `jax` made unimportable
+before the first import of the port (here and in its subprocesses), so the
+run proves that the port stands alone: its host I/O, engine build and call
+side are its own.
 """
 
 from __future__ import annotations
@@ -64,6 +77,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+# the port stands alone: neither the JAX package nor JAX may load
+GUARD = 'import sys; sys.modules["strling_tpu"] = None; sys.modules["jax"] = None'
+sys.modules["strling_tpu"] = None
+sys.modules["jax"] = None
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(ROOT, ".smoke_cache")
 KERNEL_SOURCE = "strling_tpu_torch/ops/csrc/repeat_scan.cu"
@@ -74,12 +92,13 @@ VARIANTS = ("no_greedy", "no_modal", "winmin_only")
 #: launch, which also count the host's time to issue it)
 TIMING = ("device_ms: CUDA events around 10 launches queued behind a "
           "sleeping kernel, per launch, median of 25")
-#: name in the kernels line -> what it replaces
+#: name in the kernels line -> (what it replaces, modal, variant)
 FORMS = {
-    "repeat_scan": f"{PALLAS}:200",
-    "repeat_scan[sorted]": f"{PALLAS}:44",
-    "repeat_scan[packed]": f"{PALLAS}:566",
-    **{f"repeat_scan[{v}]": f"{PALLAS}:201" for v in VARIANTS},
+    "repeat_scan": (f"{PALLAS}:200", "pairwise", "full"),
+    "repeat_scan[sorted]": (f"{PALLAS}:44", "sorted", "full"),
+    "repeat_scan[packed]": (f"{PALLAS}:566", "pairwise", "full"),
+    **{f"repeat_scan[{v}]": (f"{PALLAS}:201", "pairwise", v)
+       for v in VARIANTS},
 }
 
 
@@ -115,66 +134,6 @@ def with_short_and_n(bases, lengths, seed):
     rows = rng.integers(0, len(bases), len(bases) // 20)
     bases[rows, rng.integers(0, 100, len(rows))] = ord("N")
     return bases, lengths
-
-
-def f1_tile(L: int = 256):
-    """1024-row tile: rows 0-255 short random reads, rows 256-511 full
-    length CAG/TTC mixtures (the second 8-bit lane field of the TPU
-    kernel's k=3 SWAR modal), the rest random at full length."""
-    rng = np.random.default_rng(11)
-    alphabet = np.frombuffer(b"ACGT", np.uint8)
-    bases = alphabet[rng.integers(0, 4, (1024, L))]
-    lengths = np.full(1024, L, np.int32)
-    lengths[:256] = rng.integers(20, 100, 256)
-    for i in range(256):
-        bases[i, lengths[i]:] = 0
-    for i in range(256, 512):
-        p = rng.uniform(0.2, 0.8)
-        units = np.where(rng.random(L // 3 + 1) < p, 0, 1)
-        s = b"".join((b"CAG", b"TTC")[u] for u in units)[:L]
-        bases[i] = np.frombuffer(s, np.uint8)
-    return bases, lengths
-
-
-def f2_rows(L: int = 264):
-    rows = [b"A" * 256, b"A" * 264, b"C" * 256, b"T" * 264, b"CA" * 132]
-    bases = np.zeros((len(rows), L), np.uint8)
-    for i, r in enumerate(rows):
-        bases[i, :len(r)] = np.frombuffer(r, np.uint8)
-    return bases, np.array([len(r) for r in rows], np.int32)
-
-
-def bench_bam(path: str, n_pairs: int, seed: int = 7):
-    """bench.py's _bench_bam: 150bp proper pairs, every 20th pair's second
-    read a pure STR, the rest random sequence, on one 50Mb contig."""
-    from strling_tpu_torch.io import BamRecord, write_bam
-
-    rng = np.random.default_rng(seed)
-    L, G = 150, 50_000_000
-    alphabet = np.array(list("ACGT"))
-    units = ["CAG", "A", "AT", "AAGGG", "ATTCT"]
-    recs = []
-    pos = np.sort(rng.integers(0, G - 2000, n_pairs))
-    isizes = rng.integers(300, 500, n_pairs)
-    seqs = alphabet[rng.integers(0, 4, (n_pairs, 2, L))]
-    for i in range(n_pairs):
-        p = int(pos[i])
-        isz = int(isizes[i])
-        s1 = "".join(seqs[i, 0])
-        s2 = "".join(seqs[i, 1])
-        if i % 20 == 0:
-            u = units[i % len(units)]
-            s2 = (u * (L // len(u) + 1))[:L]
-        q = f"r{i}"
-        recs.append(BamRecord(q, 0x63, 0, p, 60, [(L, 0)], 0, p + isz - L,
-                              isz, s1))
-        recs.append(BamRecord(q, 0x93, 0, p + isz - L, 60, [(L, 0)], 0, p,
-                              -isz, s2))
-    recs.sort(key=lambda r: r.pos)
-    hdr = "@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chrB\tLN:%d\n" % G
-    write_bam(path + ".tmp", hdr, [("chrB", G)], recs)
-    os.replace(path + ".tmp.bai", path + ".bai")
-    os.replace(path + ".tmp", path)
 
 
 # ------------------------------------------------------------------ phases
@@ -213,14 +172,15 @@ def phase_build():
     say("host engine: " + (f"compat build, missing {', '.join(missing)}"
                            if missing else "system libdeflate and liblzma"))
     with ThreadPoolExecutor(2) as pool:
-        host = pool.submit(_timed, hostlib.load)
+        host = pool.submit(_timed, hostlib.lib_path)
         kern = pool.submit(_timed, kmer_cuda.library_path)
         (hpath, ht), (kpath, kt) = host.result(), kern.result()
     say(f"host engine library {hpath} in {ht:.2f}s")
     say(f"repeat_scan kernel {kpath} in {kt:.2f}s")
     log = kmer_cuda.build_log.strip()
     say("\n".join(ln for ln in log.splitlines() if "registers" in ln
-                  or "spill" in ln) if log else "(library was already built)")
+                  or "spill" in ln or "Compiling entry" in ln)
+        if log else "(library was already built)")
 
 
 def _median_ms(fn, reps=25, warm=3):
@@ -251,6 +211,16 @@ class KernelChecks:
         self.rng = np.random.default_rng(5)
         self.max_err = Counter()
         self.timings = {}
+        self.bounds = {}
+
+    @staticmethod
+    def bound(x, layout, kw):
+        """The bound of repeat_scan(x, layout, **kw) on these inputs
+        (`exp_kernel_timing.scan_bound`)."""
+        from strling_tpu_torch.scripts.exp_kernel_timing import scan_bound
+
+        named = {k: v for k, v in kw.items() if k not in ("modal", "variant")}
+        return scan_bound(x, layout, kw.get("variant", "full"), **named)
 
     def sample(self, B, special=()):
         rows = set(self.rng.choice(B, size=min(B, 2048), replace=False).tolist())
@@ -333,19 +303,28 @@ class KernelChecks:
 
     def pairwise(self):
         """The default form on every layout."""
+        from strling_tpu_torch.scripts.exp_kernel_timing import (
+            f1_tile,
+            f2_rows,
+            f6_tile,
+        )
+
         say("== 3. kernel vs plain version vs oracle: pairwise modal")
         check, sample = self.check, self.sample
-        for B in (32768, 65536):
+        for B in (4096, 32768, 65536):
             bases, lengths = kernel_batch(B, 152)
             props = np.full(B, 0.8)
             x, kw = check(f"kernel_batch {B}", bases, lengths, props, "n8",
                           sample(B))
-            ms, plain = self.time("repeat_scan", B, x, "n8", kw)
+            ms, plain = self.time("repeat_scan", B, x, "n8", kw,
+                                  plain_reps=25 if B == 32768 else 5)
             single = _median_ms(lambda: self.kmer_cuda.repeat_scan(x, "n8"))
             self.timings[("repeat_scan", B)]["ms_one_launch"] = single
+            self.bounds[("repeat_scan", B)] = self.bound(x, "n8", kw)
             say(f"n8 {B}x152: kernel {ms:.4f} ms/batch (device time; "
                 f"{single:.4f} around one launch), plain version "
-                f"{plain:.4f} ms/batch (median of 25)")
+                f"{plain:.4f} ms/batch, bound "
+                f"{self.bounds[('repeat_scan', B)]['bound_ms']:.4f} ms")
             nb, nl = with_short_and_n(bases, lengths, B)
             check(f"kernel_batch {B} + N", nb, nl, props, "w8", sample(B))
         bases, lengths = kernel_batch(4096, 256)
@@ -365,8 +344,16 @@ class KernelChecks:
         fb, fl = f2_rows()
         check("F2 homopolymers", fb, fl, np.full(len(fl), 0.8), "w16",
               range(len(fl)))
+        fb, fl = f6_tile()
+        check("F6 tile p=0.5", fb, fl, np.full(1024, 0.5), "w16", range(1024))
 
     def sorted_modal(self):
+        from strling_tpu_torch.scripts.exp_kernel_timing import (
+            f1_tile,
+            f2_rows,
+            f6_tile,
+        )
+
         say("== 3. sorted modal (STRLING_MODAL_IMPL=sorted)")
         check, sample = self.check, self.sample
         for B in (32768, 65536):
@@ -380,6 +367,7 @@ class KernelChecks:
             ms = device_ms({m: (lambda m=m: scan(x, "n8", modal=m))
                             for m in ("sorted", "pairwise")})
             self.timings[("repeat_scan[sorted]", B)] = {"ms": ms["sorted"]}
+            self.bounds[("repeat_scan[sorted]", B)] = self.bound(x, "n8", kw)
             plain = self.time_plain("repeat_scan[sorted]", B, x, "n8", kw,
                                     reps=5)
             say(f"n8 {B}x152: sorted kernel {ms['sorted']:.4f} ms/batch vs "
@@ -400,8 +388,6 @@ class KernelChecks:
         fb, fl = f2_rows()
         check("F2 homopolymers", fb, fl, np.full(len(fl), 0.8), "w16",
               range(len(fl)), modal="sorted")
-        from strling_tpu_torch.scripts.exp_kernel_timing import f6_tile
-
         fb, fl = f6_tile()
         check("F6 tile p=0.5", fb, fl, np.full(1024, 0.5), "w16", range(1024),
               modal="sorted")
@@ -437,6 +423,7 @@ class KernelChecks:
                 raise RuntimeError(f"{name}: packed kernel disagrees")
         ms, plain = self.time("repeat_scan[packed]", B, x, "packed", kw,
                               plain_reps=5)
+        self.bounds[("repeat_scan[packed]", B)] = self.bound(x, "packed", kw)
         say(f"packed {B}x152: kernel {ms:.4f} ms/batch, plain version "
             f"{plain:.4f} ms/batch (median of 5)")
 
@@ -452,6 +439,7 @@ class KernelChecks:
                        variant=v)
             x, kw = self.check(f"kernel_batch {B}", bases, lengths, props,
                                "n8", variant=v)
+            self.bounds[(f"repeat_scan[{v}]", B)] = self.bound(x, "n8", kw)
             plain = self.time_plain(f"repeat_scan[{v}]", B, x, "n8", kw,
                                     reps=5)
             say(f"{v} n8 {B}x152: plain version {plain:.4f} ms/batch "
@@ -459,6 +447,8 @@ class KernelChecks:
 
 
 def _reset_counts():
+    """Launch counts to 0 before a path (launches_by_design keeps the whole
+    run's launches: the kernels line's designs come from it)."""
     from strling_tpu_torch.ops import kmer_cuda
 
     kmer_cuda.launches = 0
@@ -482,6 +472,7 @@ def phase_main_path(work: str):
     from strling_tpu_torch.core.extract import extract_native
     from strling_tpu_torch.io import Bam, build_fai, write_bin, write_fasta
     from strling_tpu_torch.ops import kmer_cuda
+    from strling_tpu_torch.scripts.exp_kernel_compare import bench_bam
 
     rng = np.random.default_rng(2)
     seq = "".join(np.array(list("ACGT"))[rng.integers(0, 4, 40000)])
@@ -526,9 +517,10 @@ def phase_main_path(work: str):
     say(f"call: bounds {near[0][:4]}, genotype {at[0]}")
 
     cpu_bin = os.path.join(work, "sim_cpu.bin")
-    subprocess.run([sys.executable, "-m", "strling_tpu_torch.cli", "extract",
-                    "--device", "cpu", "-f", fa, "-g", strbed, bam, cpu_bin],
-                   check=True, cwd=ROOT)
+    subprocess.run([sys.executable, "-c",
+                    f"{GUARD}; from strling_tpu_torch.cli import main; "
+                    "main(sys.argv[1:])", "extract", "--device", "cpu", "-f",
+                    fa, "-g", strbed, bam, cpu_bin], check=True, cwd=ROOT)
     if not _same_file(binp, cpu_bin):
         raise RuntimeError("extract --device cuda and --device cpu bins differ")
     say(f"extract --device cpu bin is byte-identical ({os.path.getsize(binp)} bytes)")
@@ -567,8 +559,8 @@ def phase_main_path(work: str):
                           big_bin=big_bin)
 
 
-SORTED_SCRIPT = """
-import json, sys
+SORTED_SCRIPT = GUARD + """
+import json
 import torch
 from strling_tpu_torch import cli
 from strling_tpu_torch.core.extract import extract_native
@@ -635,7 +627,8 @@ def phase_packed_path(work: str, p: dict) -> int:
 
 
 def phase_stage_tool():
-    """Returns the launches by variant and the tool's {(entry, row): ms}."""
+    """Returns the launches by variant and the tool's {(entry, row): ms} and
+    stage shares."""
     say("== 4. stage tool: python -m strling_tpu_torch.scripts.exp_kernel_timing")
     from strling_tpu_torch.scripts import exp_kernel_timing
 
@@ -643,7 +636,7 @@ def phase_stage_tool():
     results = exp_kernel_timing.main([])
     counts = _counts()
     launches = {v: sum(n for (_, _, variant), n in counts.items()
-                       if variant == v) for v in VARIANTS}
+                       if variant == v) for v in (*VARIANTS, "stages")}
     say(f"stage tool launches by variant: {launches}")
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a variant never launched: {launches}")
@@ -667,25 +660,44 @@ def main():
     launches["repeat_scan[sorted]"] = phase_sorted_path(work, paths)
     launches["repeat_scan[packed]"] = phase_packed_path(work, paths)
     stage_launches, stage_ms = phase_stage_tool()
-    for v, n in stage_launches.items():
-        launches[f"repeat_scan[{v}]"] = n
+    for v in VARIANTS:
+        launches[f"repeat_scan[{v}]"] = stage_launches[v]
         checks.timings[(f"repeat_scan[{v}]", 32768)]["ms"] = stage_ms[("n8", v)]
     say(smi_line())
+    from strling_tpu_torch.ops.kmer_cuda import launches_by_design
+
     kernels = []
-    for name, replaces in FORMS.items():
+    for name, (replaces, modal, variant) in FORMS.items():
         t = checks.timings[(name, 32768)]
+        b = checks.bounds[(name, 32768)]
+        layout = "packed" if "packed" in name else "n8"
+        designs = {d for (lay, m, v, d) in launches_by_design
+                   if (lay, m, v) == (layout, modal, variant)}
+        if len(designs) != 1:
+            raise RuntimeError(f"{name}: the launcher reported designs "
+                               f"{designs} for ({layout}, {modal}, {variant})")
         entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                 "replaces": replaces, "launches": launches[name],
+                 "replaces": replaces, "design": designs.pop(),
+                 "launches": launches[name],
                  "max_abs_err": checks.max_err[name], "ms": t["ms"],
-                 "plain_ms": t["plain_ms"],
-                 "shape": "32768x152 " + ("packed" if "packed" in name
-                                          else "n8"),
+                 "plain_ms": t["plain_ms"], "bound_ms": b["bound_ms"],
+                 "bound_by": b["bound_by"],
+                 # no single PyTorch call computes the repeat unit
+                 "library_ms": None,
+                 "shape": f"32768x152 {layout}",
                  "timing": TIMING, "plain_timing": t["plain_timing"]}
+        if name == "repeat_scan":
+            entry["clocked_ms"] = stage_ms[("n8", "clocked")]
+            entry["stage_split"] = {
+                k[1][len("stage_"):]: v for k, v in stage_ms.items()
+                if k[0] == "n8" and k[1].startswith("stage_")}
         if "ms_one_launch" in t:
             entry["ms_one_launch"] = t["ms_one_launch"]
-        if (name, 65536) in checks.timings:
-            t = checks.timings[(name, 65536)]
-            entry["ms_65536"], entry["plain_ms_65536"] = t["ms"], t["plain_ms"]
+        for B in (4096, 65536):
+            if (name, B) in checks.timings:
+                t, b = checks.timings[(name, B)], checks.bounds[(name, B)]
+                entry[f"ms_{B}"], entry[f"plain_ms_{B}"] = t["ms"], t["plain_ms"]
+                entry[f"bound_ms_{B}"] = b["bound_ms"]
         kernels.append(entry)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 The same subcommands, flags and output files as `strling_tpu.cli` (the
 reference dispatcher, src/strling.nim:12-44). `extract` and `index` run the
 port, on the device given by `--device` (`cuda`, the default, needs a card;
-`cpu` runs the plain PyTorch scan). The other subcommands are host code and
-run the JAX package's own JAX-free implementations.
+`cpu` runs the plain PyTorch scan). The other subcommands are host code: the
+port's copies of the reference's implementations.
 
   extract      extract informative STR reads from a BAM. Required first step.
   merge        merge putative STR loci from multiple samples (joint calling).
@@ -46,9 +46,8 @@ def _extract(argv):
     p.add_argument("bin", help="path to output bin file to be created")
     args = p.parse_args(argv)
 
-    from strling_tpu.io.binfmt import write_bin
     from strling_tpu_torch.core.extract import extract_native, scan_devices
-    from strling_tpu_torch.io import Bam
+    from strling_tpu_torch.io import Bam, write_bin
 
     devs = scan_devices(args.device, args.devices or None)
     bam = Bam(args.bam, fasta=args.fasta or None)
@@ -71,9 +70,9 @@ def _index(argv):
     p.add_argument("fasta", help="path to fasta file")
     args = p.parse_args(argv)
 
-    from strling_tpu.utils.options import Options
     from strling_tpu_torch.core.extract import scan_devices
     from strling_tpu_torch.core.genome_index import genome_repeats
+    from strling_tpu_torch.utils.options import Options
 
     dev = scan_devices(args.device)[0]
     out = args.genome_repeats or (os.path.basename(args.fasta) + ".str")
@@ -83,31 +82,31 @@ def _index(argv):
 
 
 def _call(argv):
-    from strling_tpu.core.call import call_main
+    from strling_tpu_torch.core.call import call_main
 
     call_main(argv)
 
 
 def _merge(argv):
-    from strling_tpu.core.merge import merge_main
+    from strling_tpu_torch.core.merge import merge_main
 
     merge_main(argv)
 
 
 def _outliers(argv):
-    from strling_tpu.core.outliers import outliers_main
+    from strling_tpu_torch.core.outliers import outliers_main
 
     outliers_main(argv)
 
 
 def _pull_region(argv):
-    from strling_tpu.core.pull_region import pull_region_main
+    from strling_tpu_torch.core.pull_region import pull_region_main
 
     pull_region_main(argv)
 
 
 def _simulate(argv):
-    from strling_tpu.core.simulate import simulate_main
+    from strling_tpu_torch.core.simulate import simulate_main
 
     simulate_main(argv)
 
@@ -139,9 +138,6 @@ def main(argv=None):
         if any(a == flag or a.startswith(flag + "=") for a in argv[1:]):
             raise SystemExit(f"ERROR: {argv[0]} {flag} is not ported to "
                              "strling_tpu_torch yet; use strling_tpu.cli")
-    from strling_tpu_torch.io import hostlib
-
-    hostlib.load()  # the host subcommands read BAMs through the engine too
     COMMANDS[argv[0]][0](argv[1:])
     return 0
 

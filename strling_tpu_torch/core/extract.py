@@ -13,17 +13,17 @@ import time
 
 import torch
 
-from strling_tpu.io.extract_native import native_frag_hist
-from strling_tpu.utils import fraglen
-from strling_tpu.utils.options import Options
 from strling_tpu_torch.core.genome_index import GenomeIndex, genome_repeats
 from strling_tpu_torch.io import Bam
 from strling_tpu_torch.io.extract_native import (
     TEE_SKIP,
     TEE_TAKE,
     NativeExtractor,
+    native_frag_hist,
     peek_max_len,
 )
+from strling_tpu_torch.utils import fraglen
+from strling_tpu_torch.utils.options import Options
 
 
 def scan_devices(device: str = "cuda", devices: str | None = None):

@@ -22,11 +22,10 @@ import tempfile
 
 import numpy as np
 
-from strling_tpu.io.fasta import Fasta
-from strling_tpu.utils.options import Options
-from strling_tpu_torch.io import hostlib
+from strling_tpu_torch.io.fasta import Fasta
 from strling_tpu_torch.ops import oracle
 from strling_tpu_torch.ops.kmer import scan_codes, unpack_unit_codes
+from strling_tpu_torch.utils.options import Options
 
 WINDOW_SIZE = 100  # genome_strs.nim:122
 STEP = 60  # genome_strs.nim:123
@@ -126,9 +125,8 @@ def _chrom_zero_mask(chrom_bytes: np.ndarray, window: int, step: int,
     try:
         import ctypes as C
 
-        from strling_tpu.io.bam import _load
+        from strling_tpu_torch.io.bam import _load
 
-        hostlib.load()
         lib = _load()
         if not hasattr(lib.sio_genome_scan, "_bound"):
             P = np.ctypeslib.ndpointer

@@ -1,5 +1,5 @@
 /* Compat header: the decompression subset of libdeflate's public API that
- * the host engine (strling_tpu/io/csrc) calls, for hosts without libdeflate.
+ * the host engine (io/csrc) calls, for hosts without libdeflate.
  * Implemented on zlib by ../libdeflate_zlib.cc; same names, values and
  * semantics as libdeflate.h. */
 #ifndef STRLING_COMPAT_LIBDEFLATE_H

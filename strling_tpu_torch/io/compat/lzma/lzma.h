@@ -1,5 +1,5 @@
 /* Compat header: the one liblzma entry point the host engine's CRAM reader
- * calls (strling_tpu/io/csrc/cram.cc), for hosts that ship liblzma.so.5
+ * calls (io/csrc/cram.cc), for hosts that ship liblzma.so.5
  * without its header. Declared from liblzma's public, stable ABI
  * (lzma/base.h, lzma/container.h). */
 #ifndef STRLING_COMPAT_LZMA_H

@@ -1,30 +1,33 @@
 """Python driver for the native C++ extract engine, scanning on torch devices.
 
-The engine (the JAX package's `io/csrc/extract_engine.cc`, reused unchanged)
-reads, pairs and packs each batch into the kernel's fused wire payload; a
-pool of worker threads runs the blocking transfer -> scan -> fetch chain so
-the round trips of in-flight batches overlap each other and the next batch's
-BGZF decode. Feeds stay FIFO: the engine's mate cache is order-dependent.
+The engine (`csrc/extract_engine.cc`) reads, pairs and packs each batch into
+the kernel's fused wire payload; a pool of worker threads runs the blocking
+transfer -> scan -> fetch chain so the round trips of in-flight batches
+overlap each other and the next batch's BGZF decode. Feeds stay FIFO: the
+engine's mate cache is order-dependent. The bindings, `peek_max_len`,
+`native_frag_hist` and the engine calls of `NativeExtractor` are the
+reference's (`strling_tpu/io/extract_native.py:24-118` and the class from
+:118); the run loop and the feed are the port's.
 """
 
 from __future__ import annotations
 
+import ctypes as C
 import sys
 import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
-from strling_tpu.core.tread import TreadBatch
-from strling_tpu.io import extract_native as _ref
-from strling_tpu.io.extract_native import peek_max_len
-from strling_tpu_torch.io import hostlib
+from strling_tpu_torch.core.tread import TREAD_DTYPE, TreadBatch
+from strling_tpu_torch.io.bam import Bam, _load
 from strling_tpu_torch.ops.kmer import scan_codes, scan_payload
 
 __all__ = ["HOLD_RECORDS", "NativeExtractor", "TEE_SKIP", "TEE_TAKE",
-           "peek_max_len"]
+           "native_frag_hist", "peek_max_len"]
 
 #: the fragment-histogram tee's budget, as the reference's NativeExtractor sets
 #: it (and `native_frag_hist` by default): skip TEE_SKIP records, then count
@@ -36,15 +39,234 @@ TEE_SKIP, TEE_TAKE = 100_000, 2_000_000
 #: quarter of the records pass (a held record costs the engine ~110 bytes
 #: plus its name)
 HOLD_RECORDS = TEE_SKIP + 4 * TEE_TAKE
+#: the most scan rows a batch holds (the reference's largest row bucket)
+MAX_ROWS = 65536
 
 
-class NativeExtractor(_ref.NativeExtractor):
-    """The reference engine driver with the scan on torch devices. Only the
-    run loop and the feed differ; the engine calls are inherited."""
+def _bind(lib):
+    P = np.ctypeslib.ndpointer
+    lib.sio_ex_create.restype = C.c_void_p
+    lib.sio_ex_create.argtypes = [C.c_void_p, C.c_double, C.c_int, C.c_int64, C.c_int]
+    lib.sio_ex_destroy.argtypes = [C.c_void_p]
+    lib.sio_ex_set_index.argtypes = [C.c_void_p, C.c_int, P(np.int64), P(np.int64), C.c_int64]
+    lib.sio_ex_next_fused.restype = C.c_int64
+    lib.sio_ex_next_fused.argtypes = [
+        C.c_void_p, C.c_int64, C.POINTER(C.c_int64), P(np.uint8), P(np.uint8),
+        P(np.int32), P(np.float64), C.c_int64, C.POINTER(C.c_int32),
+    ]
+    lib.sio_ex_feed.argtypes = [C.c_void_p, P(np.int32), P(np.int32), P(np.int32), C.c_int64]
+    lib.sio_ex_done.argtypes = [C.c_void_p]
+    lib.sio_ex_nreads.restype = C.c_int64
+    lib.sio_ex_nreads.argtypes = [C.c_void_p]
+    lib.sio_ex_n_treads.restype = C.c_int64
+    lib.sio_ex_n_treads.argtypes = [C.c_void_p]
+    lib.sio_ex_get_treads.restype = C.c_int64
+    lib.sio_ex_get_treads.argtypes = [
+        C.c_void_p, P(np.int32), P(np.uint32), P(np.uint8), P(np.uint16),
+        P(np.uint8), P(np.uint8), P(np.uint8), P(np.uint8), C.c_char_p,
+        C.c_int64, P(np.int64),
+    ]
+    lib.sio_frag_hist.argtypes = [
+        C.c_void_p, C.c_int64, C.c_int64, P(np.uint32), C.POINTER(C.c_int32),
+    ]
+    lib.sio_ex_set_prefilter.argtypes = [C.c_void_p, C.c_int]
+    lib.sio_ex_set_median.argtypes = [C.c_void_p, C.c_int64]
+    lib.sio_ex_max_len.restype = C.c_int64
+    lib.sio_ex_max_len.argtypes = [C.c_void_p]
+    lib.sio_peek_max_len.restype = C.c_int64
+    lib.sio_peek_max_len.argtypes = [C.c_void_p, C.c_int64]
+    lib.sio_ex_error.restype = C.c_char_p
+    lib.sio_ex_error.argtypes = [C.c_void_p]
+    lib.sio_ex_set_hist_tee.restype = C.c_int
+    lib.sio_ex_set_hist_tee.argtypes = [C.c_void_p, C.c_int64, C.c_int64]
+    lib.sio_ex_hist_ready.restype = C.c_int
+    lib.sio_ex_hist_ready.argtypes = [C.c_void_p]
+    lib.sio_ex_get_hist.restype = C.c_int
+    lib.sio_ex_get_hist.argtypes = [C.c_void_p, P(np.uint32),
+                                    C.POINTER(C.c_int32)]
 
-    def __init__(self, *args, **kwargs):
-        hostlib.load()
-        super().__init__(*args, **kwargs)
+
+_bound = False
+
+
+def _lib():
+    global _bound
+    lib = _load()
+    if not _bound:
+        _bind(lib)
+        _bound = True
+    return lib
+
+
+def peek_max_len(bam: Bam, n_records: int = 10_000) -> int:
+    """Max l_seq over the first records (cheap Lmax probe; the engine
+    reports its true max after the run so a longer late read triggers an
+    exact re-run)."""
+    return int(_lib().sio_peek_max_len(bam._h, n_records))
+
+
+def native_frag_hist(bam: Bam, skip_reads: int = TEE_SKIP,
+                     n_reads: int = TEE_TAKE):
+    """The fragment-length histogram (uint32[4096]) of `n_reads` records
+    that pass its predicate, after skipping `skip_reads`."""
+    hist = np.zeros(4096, np.uint32)
+    maxlen = C.c_int32(0)
+    _lib().sio_frag_hist(bam._h, skip_reads, n_reads, hist, C.byref(maxlen))
+    return hist
+
+
+class NativeExtractor:
+    """The C++ extract engine, scanning on torch devices."""
+
+    def __init__(self, bam: Bam, proportion_repeat: float, min_mapq: int,
+                 median_fragment_length: int, genome_index=None,
+                 batch_records: int = 200_000, Lmax: int | None = None,
+                 prefilter: bool = True, rows_per_batch: int = 4096,
+                 frag_tee: bool = False):
+        self.lib = _lib()
+        self.bam = bam
+        # transfer width: the max read length (rounded up) bounds the packed
+        # row width; 150bp data moves 160-byte rows instead of 256
+        self.Lmax = min(bam.Lmax, Lmax) if Lmax else bam.Lmax
+        self.proportion_repeat = proportion_repeat
+        self.batch_records = batch_records
+        # batches are ROWS-driven: the engine cuts a batch when the next
+        # record would push scan rows past rows_cap (with the ~2-3%
+        # post-exact-filter row rate one 4096-row batch carries ~100-200k
+        # records; batch_records is a memory backstop — a Pending record is
+        # ~110B + a qname, so the cap bounds a row-starved stretch at ~25MB
+        # buffered per produced batch)
+        self.rows_cap = max(8, min(rows_per_batch, MAX_ROWS))
+        self._e = self.lib.sio_ex_create(
+            bam._h, proportion_repeat, min_mapq, median_fragment_length, self.Lmax
+        )
+        if not prefilter:
+            self.lib.sio_ex_set_prefilter(self._e, 0)
+        if frag_tee:
+            # fragment-length histogram accumulated on the engine's OWN
+            # record stream (same predicate/stream as native_frag_hist) —
+            # one BGZF decode pass for the whole extract instead of two
+            rc = self.lib.sio_ex_set_hist_tee(self._e, TEE_SKIP, TEE_TAKE)
+            if rc != 0:
+                raise RuntimeError("hist tee must be enabled before reading"
+                                   " (and never in sharded mode)")
+        if genome_index is not None:
+            name_to_tid = {t.name: t.tid for t in bam.targets}
+            for chrom, (starts, pmax) in genome_index.by_chrom.items():
+                tid = name_to_tid.get(chrom)
+                if tid is None:
+                    continue
+                self.lib.sio_ex_set_index(
+                    self._e, tid, np.ascontiguousarray(starts, np.int64),
+                    np.ascontiguousarray(pmax, np.int64), len(starts),
+                )
+
+    def __del__(self):
+        try:
+            if self._e:
+                self.lib.sio_ex_destroy(self._e)
+                self._e = None
+        except Exception:
+            pass
+
+    def _next_fused(self):
+        """Fused-payload batch: returns (rows, n_records, payload|None,
+        layout, ascii-tuple|None). The payload buffer is pre-zeroed and
+        rows_cap tall, so the scan can use it as an already-padded bucket
+        directly (zero rows scan as empty reads — no Python-side pad copy).
+        The engine picks the smallest wire layout per batch (fb=2 -> "n8",
+        N-free; fb=0 -> "w8"/"w16"); the ascii tuple is only filled on the
+        rare IUPAC fallback (fb=1)."""
+        # widest possible layout bounds the flat buffer; the engine writes
+        # rows at the chosen layout's stride and the buffer is re-viewed
+        meta8 = self.Lmax <= 248 and self.proportion_repeat <= 1.0
+        maxW = 3 * self.Lmax // 8 + (11 if meta8 else 22)
+        buf = np.zeros(self.rows_cap * maxW, np.uint8)
+        bases = np.empty((self.rows_cap, self.Lmax), np.uint8)
+        lengths = np.empty(self.rows_cap, np.int32)
+        props = np.empty(self.rows_cap, np.float64)
+        n_records = C.c_int64(0)
+        fb = C.c_int32(0)
+        rows = self.lib.sio_ex_next_fused(
+            self._e, self.batch_records, C.byref(n_records),
+            buf, bases.reshape(-1), lengths, props,
+            self.rows_cap, C.byref(fb),
+        )
+        if rows < 0:
+            raise IOError(self.lib.sio_ex_error(self._e).decode())
+        rows = int(rows)
+        if fb.value == 1:
+            return rows, int(n_records.value), None, None, (
+                bases, lengths, props)
+        if fb.value == 2:
+            layout, rowW = "n8", self.Lmax // 4 + 11
+        else:
+            layout, rowW = ("w8", maxW) if meta8 else ("w16", maxW)
+        payload = buf[: self.rows_cap * rowW].reshape(self.rows_cap, rowW)
+        return rows, int(n_records.value), payload, layout, None
+
+    def set_median(self, median: int):
+        """Set the fragment-length median (deferred-median mode); must run
+        before the first feed — adjust_by is its only consumer."""
+        self.lib.sio_ex_set_median(self._e, int(median))
+
+    @property
+    def hist_ready(self) -> bool:
+        """True once the teed fragment histogram is frozen (2M-record budget
+        consumed or main stream ended)."""
+        return bool(self.lib.sio_ex_hist_ready(self._e))
+
+    def get_hist(self):
+        """(hist[4096] uint32, max_read_len) from the engine tee; raises if
+        not yet ready (see hist_ready / run(hold_drain=...))."""
+        hist = np.zeros(4096, np.uint32)
+        ml = C.c_int32(0)
+        if self.lib.sio_ex_get_hist(self._e, hist, C.byref(ml)) != 0:
+            raise RuntimeError("fragment histogram not ready")
+        return hist, int(ml.value)
+
+    @property
+    def max_len_seen(self) -> int:
+        return int(self.lib.sio_ex_max_len(self._e))
+
+    @property
+    def nreads(self) -> int:
+        return int(self.lib.sio_ex_nreads(self._e))
+
+    def treads(self) -> TreadBatch:
+        lib = self.lib
+        n = int(lib.sio_ex_n_treads(self._e))
+        tid = np.empty(n, np.int32)
+        position = np.empty(n, np.uint32)
+        repeat6 = np.empty(n * 6, np.uint8)
+        flag = np.empty(n, np.uint16)
+        split = np.empty(n, np.uint8)
+        mapq = np.empty(n, np.uint8)
+        repeat_count = np.empty(n, np.uint8)
+        align_length = np.empty(n, np.uint8)
+        qcap = n * 256 + 16
+        qbuf = C.create_string_buffer(qcap)
+        qoff = np.empty(n + 1, np.int64)
+        rc = lib.sio_ex_get_treads(
+            self._e, tid, position, repeat6, flag, split, mapq, repeat_count,
+            align_length, qbuf, qcap, qoff,
+        )
+        if rc < 0:
+            raise IOError("qname buffer overflow")
+        data = np.zeros(n, TREAD_DTYPE)
+        data["tid"] = tid
+        data["position"] = position
+        data["repeat"] = repeat6.reshape(n, 6).view("S6").reshape(n)
+        data["flag"] = flag
+        data["split"] = split
+        data["mapping_quality"] = mapq
+        data["repeat_count"] = repeat_count
+        data["align_length"] = align_length
+        blob = qbuf.raw
+        qnames = [
+            blob[qoff[i]: qoff[i + 1]].decode() for i in range(n)
+        ]
+        return TreadBatch(data=data, qnames=qnames)
 
     def _feed(self, result):
         # The bin stores repeat_count in 8 bits (the engine casts on store,
@@ -59,7 +281,16 @@ class NativeExtractor(_ref.NativeExtractor):
                       "count above 255; the bin keeps it modulo 256",
                       file=sys.stderr)
                 result = (code, ulen, cnt & 0xFF)
-        super()._feed(result)
+        empty = np.zeros(0, np.int32)
+        if result is None:
+            self.lib.sio_ex_feed(self._e, empty, empty, empty, 0)
+        else:
+            code, ulen, cnt = result
+            self.lib.sio_ex_feed(
+                self._e, np.ascontiguousarray(code, np.int32),
+                np.ascontiguousarray(ulen, np.int32),
+                np.ascontiguousarray(cnt, np.int32), len(code),
+            )
 
     def run(self, devices: list[torch.device], depth: int = 8,
             pre_feed_hook=None, stats: dict | None = None,

@@ -1,38 +1,32 @@
-"""The native host engine library, on hosts that lack some of its deps.
+"""Build of the native host engine library (`libstrling_io`).
 
-The engine is the JAX package's C++ (`strling_tpu/io/csrc`, reused
-unedited). Where the compiler finds libdeflate's and liblzma's headers, the
-library is the JAX package's own build (`strling_tpu.io.build.lib_path()`,
-linked against libdeflate, zlib, liblzma and libbz2). GPU hosts may have
-zlib but neither libdeflate nor liblzma's header. There the same unedited
-sources are built against the compat layer in `compat/` (libdeflate's
+The engine is the C++ under `csrc/` next to this file (BAM/CRAM decode,
+pairing, prefilter, fused payload, bin codec, genome scan, collect helpers),
+built as one shared library from all its `.cc` files. Where the compiler
+finds libdeflate's and liblzma's headers it links the system libraries. GPU
+hosts may have zlib but neither libdeflate nor liblzma's header: there the
+same sources are built against the compat layer in `compat/` (libdeflate's
 decompression API implemented on zlib; liblzma's one entry point declared
-from its public ABI and linked by soname) into this package's own `_build/`,
-under a name that records the sources' hash and what was linked. A host
-that later gains the headers goes back to the system build.
+from its public ABI and linked by soname). The library goes to `_build/`,
+under a name that records the sources' hash and what was linked, so a host
+that later gains the headers builds the system variant beside it.
 
-`load()` makes the library the one this process uses: the reused JAX-package
-loaders (`strling_tpu.io.bam._load`, behind `Bam`, the extract engine and the
-genome scan, and `strling_tpu.io.binfmt._native_lib`, behind the bin writer)
-are opened on it before their first use. Every port entry point that needs
-the engine calls it.
+`io.bam._load()` and `io.binfmt._native_lib()` open `lib_path()`.
 """
 
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import os
 import subprocess
 
-from strling_tpu.io import build
-
-COMPAT = os.path.join(os.path.dirname(__file__), "compat")
-BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
-SRC_DIR = os.path.join(os.path.dirname(build.__file__), "csrc")
+HERE = os.path.dirname(__file__)
+SRC_DIR = os.path.join(HERE, "csrc")
+COMPAT = os.path.join(HERE, "compat")
+BUILD_DIR = os.path.join(HERE, "_build")
 _LIB_DIRS = ("/lib/x86_64-linux-gnu", "/usr/lib/x86_64-linux-gnu", "/lib64",
              "/usr/lib64", "/usr/lib")
-
-_loaded: str | None = None
 
 
 def _has_header(name: str) -> bool:
@@ -56,9 +50,11 @@ def missing_headers() -> list[str]:
     return [h for h in ("libdeflate.h", "lzma.h") if not _has_header(h)]
 
 
-def compat_lib_path(missing: list[str]) -> str:
-    """The engine built with the compat layer standing in for the libraries
-    whose headers are `missing`, building it if needed."""
+def lib_path() -> str:
+    """Path of the host engine library for this host, building it if
+    needed: linked against the system libdeflate and liblzma where their
+    headers are present, against the compat layer for those missing."""
+    missing = missing_headers()
     shim_deflate = "libdeflate.h" in missing
     shim_lzma = "lzma.h" in missing
     srcs = sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
@@ -90,37 +86,11 @@ def compat_lib_path(missing: list[str]) -> str:
         libs.append("-llzma")
     libs.append(_shared_lib("libbz2.so.1.0"))
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    subprocess.run([*cmd, "-o", tmp, *libs], check=True)
-    os.replace(tmp, out)
+    # one build per library: processes that ask at once wait for the first
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(out):
+            tmp = f"{out}.{os.getpid()}.tmp"
+            subprocess.run([*cmd, "-o", tmp, *libs], check=True)
+            os.replace(tmp, out)
     return out
-
-
-def lib_path() -> str:
-    """Path of the host engine library for this host, building it if
-    needed: the JAX package's build where the headers are all present, the
-    compat build otherwise."""
-    missing = missing_headers()
-    return compat_lib_path(missing) if missing else build.lib_path()
-
-
-def load() -> str:
-    """Open the engine library for this process (once) and return its
-    path. The reused loaders are pointed at it only while they open it, so
-    the JAX package's build functions are left as they were. A loader that
-    had already opened a library keeps it; the path returned is the one
-    `Bam` uses."""
-    global _loaded
-    if _loaded is None:
-        path = lib_path()
-        from strling_tpu.io import bam, binfmt
-
-        saved = bam.lib_path, build.lib_path
-        bam.lib_path = build.lib_path = lambda: path
-        try:
-            bam._load()
-            binfmt._native_lib()
-        finally:
-            bam.lib_path, build.lib_path = saved
-        _loaded = bam._lib._name
-    return _loaded

@@ -347,6 +347,15 @@ def get_repeat_device(bases: torch.Tensor, lengths: torch.Tensor,
 
     Returns (unit_ascii [B, 6] uint8, unit_len [B] int32, count [B] int32).
     """
+    return _detect(bases, lengths, thresh_early, thresh_prop, modal,
+                   variant)[:3]
+
+
+def _detect(bases, lengths, thresh_early, thresh_prop, modal, variant):
+    """get_repeat_device's outputs, then the path the k-selection took:
+    (reached [B, 5] bool: the machine read k's modal count, recounted
+    [B, 5] bool: it read k's exact count, skip [B] bool: the read has more
+    than 20 Ns and no k is read)."""
     modal = resolve_modal(modal)
     do_modal = check_variant(variant) in ("full", "no_greedy")
     do_greedy = variant in ("full", "no_modal")
@@ -382,12 +391,15 @@ def get_repeat_device(bases: torch.Tensor, lengths: torch.Tensor,
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     res_ki = torch.full((B,), -1, dtype=torch.int32, device=dev)
     res_count = torch.zeros(B, dtype=torch.int32, device=dev)
+    reached, recounted = [], []
     for ki, k in enumerate(KS):
         cnt = kmer_counts[ki]
         ex = exact_counts[ki]
         gate1_fail = cnt * k <= best
         newly_done = ~done & gate1_fail & (cnt < thresh_early[:, ki])
         proceed = ~done & ~gate1_fail
+        reached.append(~done & ~skip)
+        recounted.append(proceed & ~skip)
         done = done | newly_done
         upd = proceed & (ex * k >= best)
         best = torch.where(upd, ex * k, best)
@@ -415,7 +427,8 @@ def get_repeat_device(bases: torch.Tensor, lengths: torch.Tensor,
     res_count = torch.where(skip, 0, res_count)
     unit = torch.where(skip[:, None], 0, unit)
     unit_len = torch.where(skip, 0, unit_len)
-    return unit, unit_len, res_count
+    return (unit, unit_len, res_count, torch.stack(reached, dim=1),
+            torch.stack(recounted, dim=1), skip)
 
 
 def unpack_ascii(packed: torch.Tensor, nbits: torch.Tensor | None):
@@ -477,6 +490,24 @@ def repeat_codes_plain(x: torch.Tensor, layout: str, lengths=None, te=None,
     unit, ulen, cnt = get_repeat_device(bases, lengths, te, tp, modal=modal,
                                         variant=variant)
     return _unit_to_code_device(unit, ulen), ulen, cnt
+
+
+def selection_path_plain(x: torch.Tensor, layout: str, lengths=None, te=None,
+                         tp=None, *, nbits=None, variant: str = "full"):
+    """The path the k-selection state machine takes on each read, for
+    repeat_codes_plain's inputs: (reached [B, 5], recounted [B, 5], skip
+    [B], lengths [B]); see `_detect`. A detector that computes a k's modal
+    only where the machine reads it (the CUDA kernel does) needs the window
+    codes and modal of the reached k and the recount of the recounted k."""
+    if layout == "ascii":
+        bases = x
+    elif layout == "packed":
+        bases = unpack_ascii(x, nbits)
+    else:
+        bases, lengths, te, tp = unfuse_payload(x, layout)
+    *_, reached, recounted, skip = _detect(bases, lengths, te, tp,
+                                           "pairwise", variant)
+    return reached, recounted, skip, lengths.to(torch.int32)
 
 
 # --------------------------------------------------------------- dispatch

@@ -1,14 +1,18 @@
 """Wrapper of the hand-written CUDA repeat-unit scan (csrc/repeat_scan.cu).
 
 The kernel replaces the Pallas TPU kernel of `strling_tpu/ops/kmer_pallas.py`
-in all of its forms (see the header of the .cu file). It is compiled with
-nvcc for sm_90a into a shared library with a plain C interface, at first
-use, into `_build/` next to this file (hash-cached on the source and the
-flags), and loaded with ctypes. Nothing is built or loaded at import time.
+in all of its forms (see the header of the .cu file): one warp per read for
+the pairwise modal (every variant), one thread per read for the sorted one.
+It is compiled with nvcc for sm_90a into a shared library with a plain C
+interface, at first use, into `_build/` next to this file (hash-cached on
+the source and the flags), and loaded with ctypes. Nothing is built or
+loaded at import time.
 
 `repeat_scan` is the one entry: on a CPU tensor it runs the plain PyTorch
 form (`ops.kmer.repeat_codes_plain`); on a CUDA tensor it launches the kernel
-on the current stream, or raises.
+on the current stream, or raises. `repeat_scan_clocked` and `stage_cycles`
+run the detector in the kernel's clocked form and read its cycles by stage,
+for the stage tool, on the card only.
 """
 
 from __future__ import annotations
@@ -39,8 +43,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LAYOUT_IDS = {"ascii": 0, "n8": 1, "w8": 2, "w16": 3, "packed": 4}
 _MODAL_IDS = {"pairwise": 0, "sorted": 1}
 _VARIANT_IDS = {v: i for i, v in enumerate(VARIANTS)}
-#: longest row the kernel takes: each thread keeps its L/3 window codes in
-#: shared memory, and 32 threads of 2 bytes each must fit in 227 KB
+#: the clocked form of the detector (the kernel's STAGES variant)
+_STAGES_ID = len(VARIANTS)
+#: the stages the clocked form counts cycles in, in the kernel's order:
+#: loading the row and its position codes (and the N count), the window
+#: codes, the modal (with the count table's reset), the exact recount, and
+#: the rest (the selection state machine, the output, the loop)
+STAGES = ("load", "windows", "modal", "recount", "select")
+#: how the kernel splits the work, by the launcher's report (its Design enum)
+DESIGNS = ("warp_per_read", "thread_per_read")
+#: longest row the kernel takes: each warp keeps 4 bytes a base (the read,
+#: its position codes, its window codes) and a count table of up to 8 KB in
+#: shared memory, and a block's four warps must fit in 227 KB
 MAX_L = 10_000
 #: longest row the sorted modal takes: each thread sorts its L/3 window keys
 #: as int32, padded to a power of two, and 32 threads' keys must fit in
@@ -51,6 +65,9 @@ SORTED_MAX_L = 3 * 1024 + 2
 launches = 0
 #: the same launches by form: (layout, modal, variant) -> count
 launches_by: Counter = Counter()
+#: the same launches by form and the design of the kernel the launcher
+#: reported it launched: (layout, modal, variant, design) -> count
+launches_by_design: Counter = Counter()
 _lock = threading.Lock()
 _lib = None
 #: nvcc's output of the build that produced the loaded library (ptxas -v)
@@ -97,8 +114,12 @@ def _load():
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
             ]
+            cycles = lib.repeat_scan_stage_cycles
+            cycles.restype = ctypes.c_int
+            cycles.argtypes = [ctypes.POINTER(ctypes.c_ulonglong),
+                               ctypes.c_void_p]
             _lib = lib
     return _lib
 
@@ -127,9 +148,9 @@ def repeat_scan(x: torch.Tensor, layout: str, lengths=None, te=None, tp=None,
     pair). ASCII and packed rows take lengths [B] int32 and te/tp [B, 5]
     int32 on the same device. `modal` is "pairwise" or "sorted" (None:
     ops.kmer.MODAL_IMPL, from STRLING_MODAL_IMPL); `variant` one of
-    ops.kmer.VARIANTS (stage-disabled forms, for attribution only).
+    ops.kmer.VARIANTS (the TPU kernel's stage-disabled forms, timed by the
+    stage tool).
     """
-    global launches
     modal = resolve_modal(modal)
     check_variant(variant)
     if x.device.type == "cpu":
@@ -137,6 +158,43 @@ def repeat_scan(x: torch.Tensor, layout: str, lengths=None, te=None, tp=None,
                                   modal=modal, variant=variant)
     if x.device.type != "cuda":
         raise ValueError(f"repeat_scan runs on cpu or cuda tensors, not {x.device}")
+    return _launch(x, layout, lengths, te, tp, nbits, modal, variant)
+
+
+def repeat_scan_clocked(x: torch.Tensor, layout: str, lengths=None,
+                        te=None, tp=None, *, nbits=None):
+    """The detector (pairwise modal) in the kernel's clocked form, on CUDA
+    tensors only: repeat_scan's outputs, and each warp adds its clock cycles
+    in each of STAGES to the card's counters, which `stage_cycles` reads."""
+    if x.device.type != "cuda":
+        raise ValueError("the clocked form counts the card's clock cycles: "
+                         f"it needs a CUDA tensor, not {x.device}")
+    return _launch(x, layout, lengths, te, tp, nbits, "pairwise", "stages")
+
+
+def stage_cycles(device) -> dict:
+    """{stage: cycles} that the clocked form's warps on `device` spent in
+    each of STAGES since the last call (lane 0's clock, summed over warps:
+    shares of the warps' time, not of the kernel's wall), after waiting for
+    the current stream; the counters are cleared."""
+    lib = _load()
+    out = (ctypes.c_ulonglong * len(STAGES))()
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check_rc(lib.repeat_scan_stage_cycles(out, stream), "stage read")
+    return dict(zip(STAGES, (int(v) for v in out)))
+
+
+def _check_rc(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"repeat_scan {what} failed: CUDA error {rc}")
+
+
+def _launch(x, layout, lengths, te, tp, nbits, modal: str, variant: str):
+    """Launch the kernel's form on CUDA tensors (`variant` "stages": the
+    clocked detector) and count the launch."""
+    global launches
     if layout not in _LAYOUT_IDS:
         raise ValueError(f"unknown layout {layout!r}")
     if x.dim() != 2:
@@ -175,17 +233,20 @@ def repeat_scan(x: torch.Tensor, layout: str, lengths=None, te=None, tp=None,
     if B == 0:
         return code, ulen, cnt
     lib = _load()
+    design = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.repeat_scan_launch(
             x.data_ptr(), B, width, _LAYOUT_IDS[layout], L,
             nbits.data_ptr() if layout == "packed" else None, *ptrs,
-            _MODAL_IDS[modal], _VARIANT_IDS[variant],
-            code.data_ptr(), ulen.data_ptr(), cnt.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"repeat_scan launch failed ({layout}, {modal}, "
-                           f"{variant}, L={L}): CUDA error {rc}")
+            _MODAL_IDS[modal], _STAGES_ID if variant == "stages"
+            else _VARIANT_IDS[variant],
+            code.data_ptr(), ulen.data_ptr(), cnt.data_ptr(), stream,
+            ctypes.byref(design))
+    _check_rc(rc, f"launch ({layout}, {modal}, {variant}, L={L})")
     with _lock:
         launches += 1
         launches_by[(layout, modal, variant)] += 1
+        launches_by_design[(layout, modal, variant,
+                            DESIGNS[design.value])] += 1
     return code, ulen, cnt

@@ -1,9 +1,9 @@
 """Pure-Python specification of the repeat-unit detector.
 
 A copy of `strling_tpu.ops.oracle` (itself a line-faithful port of the
-reference STRling's hot loop, src/strpkg/utils.nim), with the two
-`strling_tpu.ops.encode` helpers it needs, so the port can hold its kernel
-to it without the JAX package. tests/test_torch_kmer.py keeps the two copies
+reference STRling's hot loop, src/strpkg/utils.nim), on the port's copy of
+the encode helpers (`ops.encode`), so the port can hold its kernel to it
+without the JAX package. tests/test_torch_kmer.py keeps the two copies
 equal. It is not the production path: that is `ops.kmer` and the CUDA
 kernel.
 
@@ -20,20 +20,7 @@ kernel.
 
 from __future__ import annotations
 
-DECODE = "ACTG"  # 2-bit code -> base
-
-
-def decode_kmer(v: int, k: int) -> str:
-    """The k bases of 2-bit code v, most significant first."""
-    return "".join(DECODE[(v >> (2 * (k - 1 - i))) & 3] for i in range(k))
-
-
-def reduce_repeat(s: str) -> tuple[str, int]:
-    """Collapse homopolymer units: "AA" -> ("A", 2); "CTC" -> ("CTC", 1)
-    (utils.nim:220-233). The int multiplies the repeat count."""
-    if s and all(c == s[0] for c in s):
-        return s[0], len(s)
-    return s, 1
+from strling_tpu_torch.ops.encode import decode_kmer, reduce_repeat
 
 
 def slide_by(s: str, k: int) -> list[int]:

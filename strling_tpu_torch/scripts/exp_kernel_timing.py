@@ -1,6 +1,8 @@
 """Stage attribution of the CUDA repeat-unit scan (experiment tool).
 
-Port of scripts/exp_kernel_timing.py. Times the kernel's forms on one batch
+Port of scripts/exp_kernel_timing.py, with the kernel's bound
+(`scan_bound`) and the rows of the TPU form's faults (F1, F2, F6) that the
+card checks use. Times the kernel's forms on one batch
 of the bench mix (seed 0, every 10th read a pure STR of CAG/A/AT/AAGGG/ATTCT)
 at 32768x152 (--smoke: 4096x152), through the ASCII entry (as the JAX tool
 does) and through the n8 payload (what extract runs):
@@ -11,8 +13,17 @@ does) and through the n8 payload (what extract runs):
   winmin_only  neither (window codes, selection, N skip, homopolymer)
   sorted       the detector with the sorted modal
 
-full - no_X attributes X's cost; winmin_only bounds the floor of the
-encode, window and selection stages.
+The variants are the TPU kernel's forms and are timed as such, but their
+differences to full are not the stages' costs on the warp-per-read kernel:
+it computes a k's modal and recount only when the selection state machine
+reads them, and a variant's counts change what it reads (no_modal's count,
+the number of windows, keeps every k in play: it runs five recounts where
+the detector recounts k = 2 alone on most reads). The stage split comes from
+the detector's clocked form instead (`kmer_cuda.stage_cycles`, on the card
+only): each warp's clock cycles in loading (row, position codes, N count),
+window codes, modal, recount and the rest, as shares of their sum. The
+clocked form's outputs must equal the plain detector's, and its device time
+is printed beside full's (the clock reads' cost).
 
     python -m strling_tpu_torch.scripts.exp_kernel_timing [--smoke] [--device cuda|cpu]
 
@@ -20,7 +31,8 @@ On cuda (the default; it raises without a card) each row is the device
 time of one launch: the median of 25 CUDA-event timings of 10 back-to-back
 launches, the rows taking turns (`device_ms`). --device cpu runs the plain
 PyTorch forms, timed on the host clock (median of 3): that is a CPU time,
-there so that the tool can be tested without a card.
+there so that the tool can be tested without a card; the CPU has no stage
+split.
 """
 
 from __future__ import annotations
@@ -32,8 +44,19 @@ import time
 import numpy as np
 import torch
 
-from strling_tpu_torch.ops.kmer import _host_thresholds, fuse_payload
-from strling_tpu_torch.ops.kmer_cuda import repeat_scan
+from strling_tpu_torch.ops.kmer import (
+    KS,
+    _host_thresholds,
+    fuse_payload,
+    repeat_codes_plain,
+    selection_path_plain,
+)
+from strling_tpu_torch.ops.kmer_cuda import (
+    STAGES,
+    repeat_scan,
+    repeat_scan_clocked,
+    stage_cycles,
+)
 
 #: (row, modal, variant)
 ROWS = (("full", "pairwise", "full"),
@@ -66,6 +89,85 @@ def f6_tile():
         n = int(rng.integers(43, 53))
         bases[i, 256 - 3 * n:] = np.frombuffer(b"AAT" * n, np.uint8)
     return bases, np.full(1024, 256, np.int32)
+
+
+def f1_tile(L: int = 256):
+    """1024-row tile: rows 0-255 short random reads, rows 256-511 full
+    length CAG/TTC mixtures (the second 8-bit lane field of the TPU
+    kernel's k=3 SWAR modal, fault F1), the rest random at full length."""
+    rng = np.random.default_rng(11)
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    bases = alphabet[rng.integers(0, 4, (1024, L))]
+    lengths = np.full(1024, L, np.int32)
+    lengths[:256] = rng.integers(20, 100, 256)
+    for i in range(256):
+        bases[i, lengths[i]:] = 0
+    for i in range(256, 512):
+        p = rng.uniform(0.2, 0.8)
+        units = np.where(rng.random(L // 3 + 1) < p, 0, 1)
+        s = b"".join((b"CAG", b"TTC")[u] for u in units)[:L]
+        bases[i] = np.frombuffer(s, np.uint8)
+    return bases, lengths
+
+
+def f2_rows(L: int = 264):
+    """Homopolymers of 256 and 264 bases (fault F2: the TPU form's 8-bit
+    count field) and a dinucleotide of the same length."""
+    rows = [b"A" * 256, b"A" * 264, b"C" * 256, b"T" * 264, b"CA" * 132]
+    bases = np.zeros((len(rows), L), np.uint8)
+    for i, r in enumerate(rows):
+        bases[i, :len(r)] = np.frombuffer(r, np.uint8)
+    return bases, np.array([len(r) for r in rows], np.int32)
+
+
+#: the card's peaks for the bound (H100 SXM): HBM bytes/s, and int32
+#: operations/s = 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def scan_ops(lengths, reached, recounted, skip, variant: str = "full") -> int:
+    """Integer operations the detector needs on these reads, counting only
+    the k that its selection state machine reads (`reached`, `recounted`,
+    `skip`: ops.kmer.selection_path_plain on the same inputs and variant):
+    per base the unpack and N count (1) and, where some k is recounted, the
+    rolling 12-bit code (3); for each reached k, per window the k digit
+    shifts and ors (2k), k - 1 rotations (shift, mask, shift, or, min: 5
+    each) and, where the variant has a modal, the O(1) modal update (4); for
+    each recounted k, where the variant recounts, per base the masked
+    compare and the greedy step (5). A read skipped for its Ns needs only
+    its N count."""
+    greedy = variant in ("full", "no_modal")
+    modal = variant in ("full", "no_greedy")
+    n = np.asarray(lengths, np.int64)
+    reached = np.asarray(reached, bool)
+    recounted = np.asarray(recounted, bool) & greedy
+    ops = n + 3 * n * recounted.any(axis=1)
+    for ki, k in enumerate(KS):
+        ops += reached[:, ki] * (n // k) * (2 * k + 5 * (k - 1) + 4 * modal)
+        ops += recounted[:, ki] * 5 * n
+    return int(np.where(np.asarray(skip, bool), n, ops).sum())
+
+
+def scan_bound(x: torch.Tensor, layout: str, variant: str = "full",
+               **named) -> dict:
+    """The least time the card could take for repeat_scan(x, layout,
+    variant=variant, **named): the larger of the bytes term (every input
+    byte read once, 12 output bytes a read written once, over
+    HBM_BYTES_PER_S) and the operations term (`scan_ops` over
+    INT32_OPS_PER_S), with the selection's path taken from the plain
+    version on the same tensors (on their device)."""
+    reached, recounted, skip, lengths = selection_path_plain(
+        x, layout, variant=variant, **named)
+    row_bytes = x.shape[1] + sum(t[0].numel() * t.element_size()
+                                 for t in named.values())
+    nbytes = x.shape[0] * (row_bytes + 12)
+    ops = scan_ops(*(t.cpu().numpy() for t in (lengths, reached, recounted,
+                                                skip)), variant)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "ops": ops}
 
 
 def device_ms(fns: dict, launches: int = 10, samples: int = 25) -> dict:
@@ -135,22 +237,39 @@ def main(argv=None) -> dict:
         print(f"{entry} entry, {B}x{L}, on {where}", flush=True)
         fns = {row: (lambda m=modal, v=variant: repeat_scan(
             x, entry, modal=m, variant=v, **named)) for row, modal, variant in ROWS}
-        ms = device_ms(fns) if dev.type == "cuda" else host_ms(fns)
+        if dev.type == "cuda":
+            fns["clocked"] = lambda: repeat_scan_clocked(x, entry, **named)
+            ms = device_ms(fns)
+        else:
+            ms = host_ms(fns)
         for row, _, _ in ROWS:
             results[(entry, row)] = ms[row]
             print(f"  {row:12s} {ms[row]:9.4f} ms/batch "
                   f"{B / ms[row] / 1e3:9.3f} M reads/s", flush=True)
         full = results[(entry, "full")]
-        print(f"attribution, {entry} (share of full):")
-        print(f"  exact recount (greedy): "
-              f"{(full - results[(entry, 'no_greedy')]) / full * 100:5.1f}%")
-        print(f"  modal (pairwise):       "
-              f"{(full - results[(entry, 'no_modal')]) / full * 100:5.1f}%")
-        print(f"  encode+winmin+select:   "
-              f"{results[(entry, 'winmin_only')] / full * 100:5.1f}%")
-        print(f"  sorted modal detector:  "
+        print(f"  sorted modal detector: "
               f"{results[(entry, 'sorted')] / full * 100:5.1f}% of the "
               "pairwise one's time", flush=True)
+        if dev.type != "cuda":
+            print(f"stage split, {entry}: needs the card (the kernel's "
+                  "clocked form)", flush=True)
+            continue
+        stage_cycles(dev)  # clear the timing launches' cycles
+        got = repeat_scan_clocked(x, entry, **named)
+        cycles = stage_cycles(dev)
+        want = repeat_codes_plain(x, entry, modal="pairwise", **named)
+        mism = sum(int((a != b).sum()) for a, b in zip(got, want))
+        if mism:
+            raise RuntimeError(f"{entry}: the clocked form disagrees with the "
+                               f"plain detector on {mism} values")
+        total = sum(cycles.values())
+        results[(entry, "clocked")] = ms["clocked"]
+        for st in STAGES:
+            results[(entry, f"stage_{st}")] = cycles[st] / total
+        print(f"stage split, {entry} (the clocked detector, {ms['clocked']:.4f} "
+              f"ms/batch, 0 mismatches; share of {total} warp cycles):")
+        for st in STAGES:
+            print(f"  {st:8s} {cycles[st] / total * 100:5.1f}%", flush=True)
     return results
 
 

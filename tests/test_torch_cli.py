@@ -72,9 +72,10 @@ def test_cli_unknown_command():
 
 
 def test_port_never_imports_jax(tmp_path):
-    """With `jax` made unimportable, every strling_tpu_torch module imports
-    and a tiny `extract --device cpu` runs; `--device cuda` on a host with
-    no card raises instead of running on the CPU."""
+    """With `jax` and the JAX package made unimportable, every
+    strling_tpu_torch module imports and a tiny `extract --device cpu` runs;
+    `--device cuda` on a host with no card raises instead of running on the
+    CPU."""
     from test_extract import _str_bam
 
     bam = str(tmp_path / "s.bam")
@@ -82,6 +83,7 @@ def test_port_never_imports_jax(tmp_path):
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
+        sys.modules["strling_tpu"] = None
         import torch
         torch.set_num_threads(1)
         import strling_tpu_torch
@@ -91,7 +93,7 @@ def test_port_never_imports_jax(tmp_path):
         import strling_tpu_torch.scripts.exp_kernel_timing
         from strling_tpu_torch.cli import main
         main(["extract", "--device", "cpu", {bam!r}, {str(tmp_path / 'x.bin')!r}])
-        assert not any(k == "jax" or k.startswith("jax.")
+        assert not any(k.split(".")[0] in ("jax", "strling_tpu")
                        for k, v in sys.modules.items() if v is not None)
         if not torch.cuda.is_available():
             try:

@@ -244,3 +244,156 @@ def test_variant_kernels_match_plain(cuda_device, variant):
     _same(repeat_scan(x, "packed", *args[1:], nbits=nb, variant=variant),
           TK.repeat_codes_plain(x, "packed", *args[1:], nbits=nb,
                                 variant=variant))
+
+
+def _layout_inputs(layout, n, dev, seed):
+    """(x, named tensors) of `n` reads for `layout`: n8 (no N, 152bp), w8
+    (Ns, 152bp), w16 (256bp), ASCII with IUPAC bytes, packed (2-bit rows
+    and N bitmask)."""
+    L, with_n = {"n8": (152, False), "w8": (152, True), "w16": (256, True),
+                 "ascii": (152, True), "packed": (152, True)}[layout]
+    _, bases, lengths, props = _reads(seed, n, L, with_n)
+    if with_n:
+        bases[0, 0] = ord("N")  # so that even one read takes w8/w16
+    if layout in ("n8", "w8", "w16"):
+        payload, got = TK.fuse_payload(bases, lengths, props,
+                                       return_layout=True)
+        assert got == layout
+        return torch.from_numpy(payload).to(dev), {}
+    if layout == "ascii":
+        bases[5::37, 3] = ord("R")
+    te, tp = TK._host_thresholds(lengths, props)
+    named = {"lengths": lengths, "te": te, "tp": tp}
+    x = bases
+    if layout == "packed":
+        x, named["nbits"] = TK.pack_bases(bases)
+    return (torch.from_numpy(x).to(dev),
+            {k: torch.from_numpy(v).to(dev) for k, v in named.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["full", "no_greedy", "no_modal",
+                                     "winmin_only"])
+@pytest.mark.parametrize("layout", ["n8", "w8", "w16", "ascii", "packed"])
+def test_warp_kernel_ragged_rows(cuda_device, layout, variant):
+    """One warp per read, four warps a block: 1, 31, 33 and 4097 rows (the
+    ragged edges of a warp and of a block, and more warps than the card
+    holds at once for 4097) give the plain version's answers."""
+    for n in (1, 31, 33, 4097):
+        x, named = _layout_inputs(layout, n, cuda_device, 40 + n)
+        _same(repeat_scan(x, layout, modal="pairwise", variant=variant,
+                          **named),
+              TK.repeat_codes_plain(x, layout, modal="pairwise",
+                                    variant=variant, **named))
+
+
+@pytest.mark.cuda
+def test_warp_kernel_max_l(cuda_device):
+    """Reads of MAX_L bases (the largest shared-memory footprint a warp
+    takes) on the ASCII and packed entries, against the plain version and
+    the oracle."""
+    from strling_tpu_torch.ops import kmer_cuda
+
+    L = kmer_cuda.MAX_L
+    reads = ["CAG" * (L // 3) + "C", ("AAGGG" * L)[:L],
+             "".join(np.random.default_rng(1).choice(list("ACGT"), L)),
+             ("AT" * L)[:L - 17]]
+    bases = np.zeros((len(reads), L), np.uint8)
+    for i, r in enumerate(reads):
+        bases[i, :len(r)] = np.frombuffer(r.encode(), np.uint8)
+    lengths = np.array([len(r) for r in reads], np.int32)
+    props = np.array([0.8, 0.6, 0.8, 0.4])
+    args = _ascii_args(bases, lengths, props, cuda_device)
+    got = repeat_scan(args[0], "ascii", *args[1:])
+    _same(got, TK.repeat_codes_plain(args[0], "ascii", *args[1:]))
+    _oracle_check(reads, props, *(t.cpu().numpy() for t in got))
+    packed, nbits = TK.pack_bases(bases)
+    x, nb = (torch.from_numpy(a).to(cuda_device) for a in (packed, nbits))
+    _same(repeat_scan(x, "packed", *args[1:], nbits=nb), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", ["f1_w16", "f1_n8", "f2", "f6"])
+def test_warp_kernel_fault_rows_match_oracle(cuda_device, tile):
+    """The rows of the TPU form's faults on the default (pairwise, warp per
+    read) kernel: F1 (k = 3 lane-field carry), F2 (counts of 256 and more),
+    F6 (85 windows at k = 3), every row as the oracle says."""
+    from strling_tpu_torch.scripts import exp_kernel_timing as T
+
+    bases, lengths, p = {
+        "f1_w16": lambda: (*T.f1_tile(256), 0.8),
+        "f1_n8": lambda: (*T.f1_tile(248), 0.8),
+        "f2": lambda: (*T.f2_rows(), 0.8),
+        "f6": lambda: (*T.f6_tile(), 0.5)}[tile]()
+    props = np.full(len(lengths), p)
+    payload, layout = TK.fuse_payload(bases, lengths, props,
+                                      return_layout=True)
+    assert layout == ("n8" if tile == "f1_n8" else "w16")
+    got = repeat_scan(torch.from_numpy(payload).to(cuda_device), layout)
+    reads = [bases[i, :lengths[i]].tobytes().decode()
+             for i in range(len(lengths))]
+    _oracle_check(reads, props, *(t.cpu().numpy() for t in got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [511, 512])
+def test_warp_kernel_table_width(cuda_device, L):
+    """Rows of up to 511 bases count in u8 table entries, longer rows in
+    u16: homopolymers and dinucleotides filling the row (one code 255 or
+    256 times at k = 2) give the plain version's and the oracle's answers on
+    both sides of the switch."""
+    reads = ["A" * L, ("CA" * L)[:L], "G" * (L - 1), ("AAG" * L)[:L]]
+    bases = np.zeros((len(reads), L), np.uint8)
+    for i, r in enumerate(reads):
+        bases[i, :len(r)] = np.frombuffer(r.encode(), np.uint8)
+    lengths = np.array([len(r) for r in reads], np.int32)
+    props = np.full(len(reads), 0.8)
+    args = _ascii_args(bases, lengths, props, cuda_device)
+    got = repeat_scan(args[0], "ascii", *args[1:])
+    _same(got, TK.repeat_codes_plain(args[0], "ascii", *args[1:]))
+    _oracle_check(reads, props, *(t.cpu().numpy() for t in got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["n8", "w8", "w16", "ascii", "packed"])
+def test_clocked_form_matches_plain(cuda_device, layout):
+    """The detector's clocked form (the stage split's source) gives the
+    plain version's answers on every layout, at ragged row counts, and
+    counts cycles in every stage."""
+    from strling_tpu_torch.ops import kmer_cuda
+
+    for n in (33, 4097):
+        x, named = _layout_inputs(layout, n, cuda_device, 70 + n)
+        kmer_cuda.stage_cycles(cuda_device)
+        got = kmer_cuda.repeat_scan_clocked(x, layout, **named)
+        cycles = kmer_cuda.stage_cycles(cuda_device)
+        _same(got, TK.repeat_codes_plain(x, layout, modal="pairwise",
+                                         **named))
+        assert set(cycles) == set(kmer_cuda.STAGES)
+        assert min(cycles.values()) > 0, cycles
+    assert kmer_cuda.stage_cycles(cuda_device) == dict.fromkeys(
+        kmer_cuda.STAGES, 0)
+
+
+@pytest.mark.cuda
+def test_launcher_reports_design(cuda_device):
+    """The design in launches_by_design is the one the launcher reports:
+    warp per read for the pairwise modal and the variants, thread per read
+    where the sorted modal runs."""
+    from strling_tpu_torch.ops import kmer_cuda
+
+    x, _ = _layout_inputs("n8", 100, cuda_device, 3)
+    kmer_cuda.launches_by_design.clear()
+    for modal in ("pairwise", "sorted"):
+        for variant in ("full", "no_greedy", "no_modal"):
+            repeat_scan(x, "n8", modal=modal, variant=variant)
+    kmer_cuda.repeat_scan_clocked(x, "n8")
+    assert dict(kmer_cuda.launches_by_design) == {
+        ("n8", "pairwise", "full", "warp_per_read"): 1,
+        ("n8", "pairwise", "no_greedy", "warp_per_read"): 1,
+        ("n8", "pairwise", "no_modal", "warp_per_read"): 1,
+        ("n8", "sorted", "full", "thread_per_read"): 1,
+        ("n8", "sorted", "no_greedy", "thread_per_read"): 1,
+        ("n8", "sorted", "no_modal", "warp_per_read"): 1,
+        ("n8", "pairwise", "stages", "warp_per_read"): 1,
+    }

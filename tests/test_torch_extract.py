@@ -229,14 +229,17 @@ def test_small_batches_many_workers(str_bam):
     try:
         stats = {}
         # prefilter off: every read is a scan row, so batches are many
-        ne = NativeExtractor(Bam(str_bam), 0.8, 40, med, batch_records=64,
-                             rows_per_batch=48, prefilter=False)
+        ne = NativeExtractor(PortBam(str_bam), 0.8, 40, med,
+                             batch_records=64, rows_per_batch=48,
+                             prefilter=False)
         got = ne.run(CPU * 3, depth=24, stats=stats)
     finally:
         sys.setswitchinterval(old)
-    assert got.to_treads() == want.to_treads() and len(got) > 0
+    # the port's treads are its own class: compare the records field by field
+    assert got.data.tobytes() == want.data.tobytes()
+    assert got.qnames == want.qnames and len(got) > 0
     # the same engine drained without scans gives the batch and row counts
-    probe = NativeExtractor(Bam(str_bam), 0.8, 40, med, batch_records=64,
+    probe = NativeExtractor(PortBam(str_bam), 0.8, 40, med, batch_records=64,
                             rows_per_batch=48, prefilter=False)
     n_batches = n_rows = 0
     while True:

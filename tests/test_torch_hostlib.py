@@ -13,7 +13,6 @@ import zlib
 import numpy as np
 import pytest
 
-from strling_tpu.io import build
 from strling_tpu_torch.io import hostlib
 
 SHIM = os.path.join(hostlib.COMPAT, "libdeflate_zlib.cc")
@@ -22,23 +21,25 @@ BOTH = ["libdeflate.h", "lzma.h"]
 
 
 def test_lib_path_follows_headers(monkeypatch):
-    """All headers present: the JAX package's own build. Some missing: the
-    compat build, in the port's folder, named by what it linked."""
-    monkeypatch.setattr(hostlib, "missing_headers", lambda: [])
-    assert hostlib.lib_path() == build.lib_path()
-    monkeypatch.setattr(hostlib, "missing_headers", lambda: BOTH)
-    path = hostlib.lib_path()
-    name = os.path.basename(path)
-    assert os.path.dirname(path) == hostlib.BUILD_DIR
-    assert name.endswith("-deflate_on_zlib-lzma_by_soname.so")
-    assert not os.path.exists(os.path.join(os.path.dirname(build.lib_path()),
-                                           name))
+    """The port builds its own engine from its own sources, in its own
+    folder: linked against the system libraries where all headers are
+    present, against the compat layer for those missing, named by what it
+    linked."""
+    assert hostlib.SRC_DIR == os.path.join(REPO, "strling_tpu_torch", "io",
+                                           "csrc")
+    for missing, link in (([], "-libdeflate-liblzma.so"),
+                          (BOTH, "-deflate_on_zlib-lzma_by_soname.so")):
+        monkeypatch.setattr(hostlib, "missing_headers", lambda m=missing: m)
+        path = hostlib.lib_path()
+        assert os.path.dirname(path) == hostlib.BUILD_DIR
+        assert os.path.basename(path).endswith(link)
+        assert os.path.exists(path)
 
 
 @pytest.mark.parametrize("compat", [False, True])
 def test_extract_native_fresh_process(compat, tmp_path):
-    """A library user's extract in a new process, with no CLI: the port
-    opens the engine itself. With the compat build (as on a host without
+    """A library user's extract in a new process, with no CLI and with the
+    JAX package blocked: the port opens its own engine. With the compat build (as on a host without
     libdeflate's and liblzma's headers) the engine, the genome scan and the
     bin writer all run on it, and the bin is the JAX package's."""
     from strling_tpu.core.extract import extract_native as ref_extract_native
@@ -54,17 +55,17 @@ def test_extract_native_fresh_process(compat, tmp_path):
     script = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
+        sys.modules["strling_tpu"] = None
         import torch
         torch.set_num_threads(1)
         from strling_tpu_torch.io import hostlib
         if {compat}:
             hostlib.missing_headers = lambda: {BOTH!r}
-        from strling_tpu.io import bam as engine
-        from strling_tpu.io.binfmt import write_bin
         from strling_tpu_torch.core.extract import extract_native
         from strling_tpu_torch.core.genome_index import genome_repeats
-        from strling_tpu_torch.io import Bam
-        from strling_tpu.utils.options import Options
+        from strling_tpu_torch.io import Bam, write_bin
+        from strling_tpu_torch.io import bam as engine
+        from strling_tpu_torch.utils.options import Options
         cpu = torch.device("cpu")
         genome_repeats({fa!r}, Options(), {str(tmp_path / "ref.str")!r}, cpu)
         bam = Bam({bam!r})
