@@ -6,7 +6,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   1. environment: the card's name and power limit, CUDA, nvcc, Triton;
   2. build the host engine library and the CUDA repeat-unit kernel (every
      form) from the sources in the checkout, in parallel, timed, with
-     ptxas's registers and shared memory per form;
+     ptxas's registers, spills and shared memory per form, and the warps an
+     SM holds of each detector form at 152 and 256 bases (the launcher's
+     occupancy);
   3. each kernel form against its plain PyTorch version on the card and,
      for the detector's forms, against the detector's pure-Python
      specification (`ops.oracle.get_repeat`, held equal to the JAX
@@ -20,10 +22,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
        to back, median of 25) and events around one launch, which also
        count the host's time to issue it; the plain version's events around
        one call, median of 25;
-     - sorted (STRLING_MODAL_IMPL=sorted; one thread per read) on the same
-       batches and the F6 tile (1024x256, every other read ending in 43-52
-       x AAT, p = 0.5, 85 windows at k = 3), with sorted and pairwise times
-       side by side;
+     - sorted (STRLING_MODAL_IMPL=sorted; one warp per read, as pairwise)
+       on n8, w8 with Ns, ASCII with IUPAC bytes and packed rows at 4096,
+       32768 and 65536 rows, the w16 batch, the F1, F2 and F6 tiles (1024x256,
+       every other read ending in 43-52 x AAT, p = 0.5, 85 windows at k = 3)
+       and a batch of ASCII rows of up to 4,000 bases, with sorted and
+       pairwise times side by side (taking turns) at each n8 batch size;
+     - both detectors on ASCII rows with IUPAC bytes at 32768x152, timed
+       with their plain versions;
      - packed (2-bit rows + N bitmask: thresholds outside u16) through
        scan_codes on the card, which must take that entry;
      - the stage-disabled variants (no_greedy, no_modal, winmin_only) on
@@ -42,18 +48,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      - `index -p -0.05` with --device cuda and --device cpu: beds
        byte-equal, and the packed form must launch;
      - the stage tool (`strling_tpu_torch.scripts.exp_kernel_timing`), which
-       prints its table and the detector's stage split from the kernel's
-       clocked form (whose outputs must equal the plain version's); every
-       variant and the clocked form must launch. Its n8 rows are the
-       variants' kernel times.
+       prints its table and the detector's stage split, for each modal, from
+       the kernel's clocked form (whose outputs must equal the plain
+       version's); every variant and both clocked forms must launch. Its n8
+       rows are the variants' kernel times;
+     - a cohort through the CLI: the carrier of the main path and four
+       samples without the expansion, each extracted with --device cuda,
+       then merge, call against the joint bounds, and outliers, which must
+       name the carrier as the top outlier at the locus; the pairwise kernel
+       must launch.
 
 The second-to-last line is a JSON object describing the kernel's forms, each
 entry naming its design as the launcher reported it for that form's launches
-in this run (warp_per_read or thread_per_read), how its times were taken and
-its bound (`scripts/exp_kernel_timing.scan_bound`: the larger of the bytes
+in this run (warp_per_read), the warps an SM holds of it, how its times
+were taken and its bound (`scripts/exp_kernel_timing.scan_bound`: the larger of the bytes
 over the card's HBM rate and the integer operations, for the k that the
 selection state machine reads on these inputs, over its int32 rate); the
-detector's entry adds its stage split on n8 rows. The last line is {"ok":
+detectors' entries (pairwise and sorted) add their clocked form's time and
+stage split on n8 rows. The last line is {"ok":
 true, "device": {...}}. Everything it
 generates goes under .smoke_cache/ in the checkout. It imports torch, numpy
 and strling_tpu_torch only, with `strling_tpu` and `jax` made unimportable
@@ -123,6 +135,32 @@ def kernel_batch(B: int, L: int):
     return bench_batch(B, L)
 
 
+def long_rows(B: int, L: int):
+    """ASCII rows of up to L bases: the bench mix at full length, a third
+    cut to 3,075-L bases (past the 3,074 that the sorted modal's thread
+    kernel took), CAG/TTC mixtures, STRs of five units with 1% substituted
+    bases, IUPAC bytes and N runs."""
+    bases, lengths = kernel_batch(B, L)
+    rng = np.random.default_rng(L)
+    for i in range(1, B, 7):
+        units = np.where(rng.random(L // 3 + 1) < rng.uniform(0.3, 0.9), 0, 1)
+        bases[i] = np.frombuffer(
+            b"".join((b"CAG", b"TTC")[u] for u in units)[:L], np.uint8)
+    for j, i in enumerate(range(3, B, 7)):
+        u = (b"AAGGG", b"AT", b"A", b"GGGGCC", b"ATTCT")[j % 5]
+        bases[i] = np.frombuffer((u * (L // len(u) + 1))[:L], np.uint8)
+        hit = rng.random(L) < 0.01
+        bases[i, hit] = np.frombuffer(b"ACGT", np.uint8)[
+            rng.integers(0, 4, int(hit.sum()))]
+    lengths[::3] = rng.integers(3075, L + 1, len(lengths[::3]))
+    for i in range(0, B, 3):
+        bases[i, lengths[i]:] = 0
+    bases[2::11, 500] = ord("R")
+    bases[5::13, 900:915] = ord("N")
+    props = rng.choice([0.8, 0.6, 0.4], B)
+    return bases, lengths, props
+
+
 def with_short_and_n(bases, lengths, seed):
     """Short-read tails (length 100, zero padded) and N runs (the >20 N
     skip and the w8 N plane)."""
@@ -181,6 +219,12 @@ def phase_build():
     say("\n".join(ln for ln in log.splitlines() if "registers" in ln
                   or "spill" in ln or "Compiling entry" in ln)
         if log else "(library was already built)")
+    for L in (152, 256):
+        for layout in ("n8", "w8", "w16", "ascii", "packed"):
+            say(f"warps an SM holds, {layout} rows of {L} bases: " + ", ".join(
+                f"{m} {kmer_cuda.warps_per_sm(layout, L, m)} (clocked "
+                f"{kmer_cuda.warps_per_sm(layout, L, m, 'stages')})"
+                for m in ("pairwise", "sorted")))
 
 
 def _median_ms(fn, reps=25, warm=3):
@@ -349,34 +393,42 @@ class KernelChecks:
 
     def sorted_modal(self):
         from strling_tpu_torch.scripts.exp_kernel_timing import (
+            device_ms,
             f1_tile,
             f2_rows,
             f6_tile,
         )
 
-        say("== 3. sorted modal (STRLING_MODAL_IMPL=sorted)")
+        say("== 3. sorted modal (STRLING_MODAL_IMPL=sorted; one warp per read)")
         check, sample = self.check, self.sample
-        for B in (32768, 65536):
+        scan = self.kmer_cuda.repeat_scan
+        form = "repeat_scan[sorted]"
+        for B in (4096, 32768, 65536):
             bases, lengths = kernel_batch(B, 152)
             props = np.full(B, 0.8)
             x, kw = check(f"kernel_batch {B}", bases, lengths, props, "n8",
                           sample(B), modal="sorted")
-            from strling_tpu_torch.scripts.exp_kernel_timing import device_ms
-
-            scan = self.kmer_cuda.repeat_scan
             ms = device_ms({m: (lambda m=m: scan(x, "n8", modal=m))
                             for m in ("sorted", "pairwise")})
-            self.timings[("repeat_scan[sorted]", B)] = {"ms": ms["sorted"]}
-            self.bounds[("repeat_scan[sorted]", B)] = self.bound(x, "n8", kw)
-            plain = self.time_plain("repeat_scan[sorted]", B, x, "n8", kw,
-                                    reps=5)
+            self.timings[(form, B)] = {"ms": ms["sorted"]}
+            self.bounds[(form, B)] = self.bound(x, "n8", kw)
+            plain = self.time_plain(form, B, x, "n8", kw,
+                                    reps=25 if B == 32768 else 5)
             say(f"n8 {B}x152: sorted kernel {ms['sorted']:.4f} ms/batch vs "
                 f"pairwise kernel {ms['pairwise']:.4f} ms/batch (device "
                 f"times, taking turns); sorted plain version {plain:.4f} "
-                "ms/batch (median of 5)")
+                f"ms/batch; bound {self.bounds[(form, B)]['bound_ms']:.4f} ms")
             nb, nl = with_short_and_n(bases, lengths, B)
             check(f"kernel_batch {B} + N", nb, nl, props, "w8", sample(B),
                   modal="sorted")
+            iu = nb.copy()
+            iu[3::40, 10] = ord("R")
+            iu[7::40, 60:64] = np.frombuffer(b"YSWK", np.uint8)
+            check(f"kernel_batch {B} + N + IUPAC", iu, nl, np.full(B, 0.6),
+                  "ascii", sample(B, range(3, B, 400)), modal="sorted")
+            pprops = np.where(np.arange(B) % 2 == 0, -0.05, 1000.0)
+            check(f"kernel_batch {B} + N, props -0.05 and 1000", nb, nl,
+                  pprops, "packed", sample(B), modal="sorted")
         bases, lengths = kernel_batch(4096, 256)
         bases, lengths = with_short_and_n(bases, lengths, 3)
         check("kernel_batch 4096 L=256 (85 k=3 windows)", bases, lengths,
@@ -391,6 +443,27 @@ class KernelChecks:
         fb, fl = f6_tile()
         check("F6 tile p=0.5", fb, fl, np.full(1024, 0.5), "w16", range(1024),
               modal="sorted")
+        lb, ll, lp = long_rows(256, 4000)
+        check("long rows (up to 4000 bases, 1333 k=3 windows)", lb, ll, lp,
+              "ascii", range(0, 256, 8), modal="sorted")
+
+    def ascii_entry(self):
+        """Both detectors on ASCII rows (the engine's IUPAC fallback
+        entry) at 32768x152: kernel, plain version and bound."""
+        say("== 3. ASCII entry, both modals")
+        B = 32768
+        bases, lengths = kernel_batch(B, 152)
+        bases[3::40, 10] = ord("R")
+        props = np.full(B, 0.8)
+        for form, modal in (("repeat_scan", "pairwise"),
+                            ("repeat_scan[sorted]", "sorted")):
+            x, kw = self.check(f"kernel_batch {B} + IUPAC", bases, lengths,
+                               props, "ascii", modal=modal)
+            ms, plain = self.time(form, "ascii", x, "ascii", kw, plain_reps=5)
+            self.bounds[(form, "ascii")] = self.bound(x, "ascii", kw)
+            say(f"ascii {B}x152 {modal}: kernel {ms:.4f} ms/batch, plain "
+                f"version {plain:.4f} ms/batch (median of 5), bound "
+                f"{self.bounds[(form, 'ascii')]['bound_ms']:.4f} ms")
 
     def packed(self):
         """Thresholds outside u16: scan_codes must send the batch as 2-bit
@@ -626,6 +699,62 @@ def phase_packed_path(work: str, p: dict) -> int:
     return launches
 
 
+def phase_cohort(work: str, p: dict) -> int:
+    """The main path's carrier and four samples without the expansion,
+    each extracted on the card, merged, called against the joint bounds and
+    scored by outliers; the carrier must be the top outlier at the locus.
+    Returns the kernel launches of the run."""
+    say("== 4. cohort: simulate -> extract -> merge -> call -> outliers")
+    from strling_tpu_torch import cli
+
+    d = os.path.join(work, "cohort")
+    os.makedirs(d)
+    carrier = "c2"
+    bams = {s: os.path.join(d, f"{s}.bam") for s in
+            ("c0", "c1", "c2", "c3", "c4")}
+    for ext in ("", ".bai"):
+        shutil.copyfile(p["bam"] + ext, bams[carrier] + ext)
+    for i, (s, bam) in enumerate(bams.items()):
+        if s != carrier:
+            cli.main(["simulate", "--fasta", p["fa"], "--flank", "9000",
+                      "--depth", "30", "--seed", str(100 + i), "--output",
+                      bam[:-4], "normal:400,50", f"chr1:{LOCUS}:CAG_0/0"])
+    _reset_counts()
+    t0 = time.perf_counter()
+    for s, bam in bams.items():
+        cli.main(["extract", "--device", "cuda", "-f", p["fa"], "-g",
+                  p["strbed"], bam, bam[:-4] + ".bin"])
+    counts = _counts()
+    joint = os.path.join(d, "joint")
+    cli.main(["merge", "-f", p["fa"], "-o", joint,
+              *(b[:-4] + ".bin" for b in bams.values())])
+    for s, bam in bams.items():
+        cli.main(["call", "-f", p["fa"], "-b", joint + "-bounds.txt", "-o",
+                  os.path.join(d, s), bam, bam[:-4] + ".bin"])
+    cli.main(["outliers", "--out", os.path.join(d, "cohort."),
+              "--genotypes", *(os.path.join(d, f"{s}-genotype.txt")
+                               for s in bams),
+              "--unplaced", *(os.path.join(d, f"{s}-unplaced.txt")
+                              for s in bams)])
+    wall = time.perf_counter() - t0
+    lines = open(os.path.join(d, "cohort.STRs.tsv")).read().splitlines()
+    header = lines[0].split("\t")
+    top = dict(zip(header, lines[1].split("\t")))
+    launches = sum(n for (_, modal, variant), n in counts.items()
+                   if modal == "pairwise" and variant == "full")
+    say(f"cohort of {len(bams)}: extract, merge, call and outliers in "
+        f"{wall:.2f}s; top outlier {top['sample']} at {top['chrom']}:"
+        f"{top['left']}-{top['right']} {top['repeatunit']} outlier "
+        f"{top['outlier']} p_adj {top['p_adj']}; launches {dict(counts)}")
+    if top["sample"] != carrier or abs(int(top["left"]) - LOCUS) > 1000:
+        raise RuntimeError(f"the top outlier is not the carrier {carrier} at "
+                           f"chr1:{LOCUS}: {top}")
+    if launches <= 0 or launches != sum(counts.values()):
+        raise RuntimeError("the cohort's extracts did not run on the "
+                           f"pairwise repeat_scan kernel: {dict(counts)}")
+    return launches
+
+
 def phase_stage_tool():
     """Returns the launches by variant and the tool's {(entry, row): ms} and
     stage shares."""
@@ -637,9 +766,13 @@ def phase_stage_tool():
     counts = _counts()
     launches = {v: sum(n for (_, _, variant), n in counts.items()
                        if variant == v) for v in (*VARIANTS, "stages")}
-    say(f"stage tool launches by variant: {launches}")
-    if min(launches.values()) <= 0:
-        raise RuntimeError(f"a variant never launched: {launches}")
+    clocked = {m: sum(n for (_, modal, variant), n in counts.items()
+                      if (modal, variant) == (m, "stages"))
+               for m in ("pairwise", "sorted")}
+    say(f"stage tool launches by variant: {launches}; clocked forms by "
+        f"modal: {clocked}")
+    if min(launches.values()) <= 0 or min(clocked.values()) <= 0:
+        raise RuntimeError(f"a variant never launched: {launches}, {clocked}")
     return launches, results
 
 
@@ -649,6 +782,7 @@ def main():
     checks = KernelChecks()
     checks.pairwise()
     checks.sorted_modal()
+    checks.ascii_entry()
     checks.packed()
     checks.variants()
     os.makedirs(CACHE, exist_ok=True)
@@ -660,11 +794,12 @@ def main():
     launches["repeat_scan[sorted]"] = phase_sorted_path(work, paths)
     launches["repeat_scan[packed]"] = phase_packed_path(work, paths)
     stage_launches, stage_ms = phase_stage_tool()
+    cohort_launches = phase_cohort(work, paths)
     for v in VARIANTS:
         launches[f"repeat_scan[{v}]"] = stage_launches[v]
         checks.timings[(f"repeat_scan[{v}]", 32768)]["ms"] = stage_ms[("n8", v)]
     say(smi_line())
-    from strling_tpu_torch.ops.kmer_cuda import launches_by_design
+    from strling_tpu_torch.ops.kmer_cuda import launches_by_design, warps_per_sm
 
     kernels = []
     for name, (replaces, modal, variant) in FORMS.items():
@@ -678,6 +813,7 @@ def main():
                                f"{designs} for ({layout}, {modal}, {variant})")
         entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                  "replaces": replaces, "design": designs.pop(),
+                 "warps_per_sm": warps_per_sm(layout, 152, modal, variant),
                  "launches": launches[name],
                  "max_abs_err": checks.max_err[name], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": b["bound_ms"],
@@ -687,13 +823,16 @@ def main():
                  "shape": f"32768x152 {layout}",
                  "timing": TIMING, "plain_timing": t["plain_timing"]}
         if name == "repeat_scan":
-            entry["clocked_ms"] = stage_ms[("n8", "clocked")]
+            entry["launches_cohort"] = cohort_launches
+        if name in ("repeat_scan", "repeat_scan[sorted]"):
+            entry["clocked_ms"] = stage_ms[("n8", f"clocked_{modal}")]
+            prefix = f"stage_{modal}_"
             entry["stage_split"] = {
-                k[1][len("stage_"):]: v for k, v in stage_ms.items()
-                if k[0] == "n8" and k[1].startswith("stage_")}
+                k[1][len(prefix):]: v for k, v in stage_ms.items()
+                if k[0] == "n8" and k[1].startswith(prefix)}
         if "ms_one_launch" in t:
             entry["ms_one_launch"] = t["ms_one_launch"]
-        for B in (4096, 65536):
+        for B in (4096, 65536, "ascii"):
             if (name, B) in checks.timings:
                 t, b = checks.timings[(name, B)], checks.bounds[(name, B)]
                 entry[f"ms_{B}"], entry[f"plain_ms_{B}"] = t["ms"], t["plain_ms"]

@@ -2,17 +2,18 @@
 
 The kernel replaces the Pallas TPU kernel of `strling_tpu/ops/kmer_pallas.py`
 in all of its forms (see the header of the .cu file): one warp per read for
-the pairwise modal (every variant), one thread per read for the sorted one.
-It is compiled with nvcc for sm_90a into a shared library with a plain C
-interface, at first use, into `_build/` next to this file (hash-cached on
-the source and the flags), and loaded with ctypes. Nothing is built or
+both modals and every variant. It is compiled with nvcc for sm_90a into a
+shared library with a plain C interface, at first use, into `_build/` next
+to this file (hash-cached on the source and the flags), and loaded with
+ctypes. Nothing is built or
 loaded at import time.
 
 `repeat_scan` is the one entry: on a CPU tensor it runs the plain PyTorch
 form (`ops.kmer.repeat_codes_plain`); on a CUDA tensor it launches the kernel
 on the current stream, or raises. `repeat_scan_clocked` and `stage_cycles`
 run the detector in the kernel's clocked form and read its cycles by stage,
-for the stage tool, on the card only.
+for the stage tool, on the card only; `warps_per_sm` says how many warps of
+a form an SM holds.
 """
 
 from __future__ import annotations
@@ -51,15 +52,12 @@ _STAGES_ID = len(VARIANTS)
 #: the rest (the selection state machine, the output, the loop)
 STAGES = ("load", "windows", "modal", "recount", "select")
 #: how the kernel splits the work, by the launcher's report (its Design enum)
-DESIGNS = ("warp_per_read", "thread_per_read")
+DESIGNS = ("warp_per_read",)
 #: longest row the kernel takes: each warp keeps 4 bytes a base (the read,
 #: its position codes, its window codes) and a count table of up to 8 KB in
-#: shared memory, and a block's four warps must fit in 227 KB
+#: shared memory (the sorted modal: 3 bytes a base and up to 16 KB of sort
+#: keys), and a block's four warps must fit in 227 KB
 MAX_L = 10_000
-#: longest row the sorted modal takes: each thread sorts its L/3 window keys
-#: as int32, padded to a power of two, and 32 threads' keys must fit in
-#: 227 KB, so at most 1024 keys
-SORTED_MAX_L = 3 * 1024 + 2
 
 #: kernel launches since import (or since a caller last reset it)
 launches = 0
@@ -120,6 +118,9 @@ def _load():
             cycles.restype = ctypes.c_int
             cycles.argtypes = [ctypes.POINTER(ctypes.c_ulonglong),
                                ctypes.c_void_p]
+            warps = lib.repeat_scan_warps_per_sm
+            warps.restype = ctypes.c_int
+            warps.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
             _lib = lib
     return _lib
 
@@ -162,14 +163,33 @@ def repeat_scan(x: torch.Tensor, layout: str, lengths=None, te=None, tp=None,
 
 
 def repeat_scan_clocked(x: torch.Tensor, layout: str, lengths=None,
-                        te=None, tp=None, *, nbits=None):
-    """The detector (pairwise modal) in the kernel's clocked form, on CUDA
-    tensors only: repeat_scan's outputs, and each warp adds its clock cycles
-    in each of STAGES to the card's counters, which `stage_cycles` reads."""
+                        te=None, tp=None, *, nbits=None,
+                        modal: str | None = None):
+    """The detector with the `modal` form (as for repeat_scan) in the
+    kernel's clocked form, on CUDA tensors only: repeat_scan's outputs, and
+    each warp adds its clock cycles in each of STAGES to the card's
+    counters, which `stage_cycles` reads."""
+    modal = resolve_modal(modal)
     if x.device.type != "cuda":
         raise ValueError("the clocked form counts the card's clock cycles: "
                          f"it needs a CUDA tensor, not {x.device}")
-    return _launch(x, layout, lengths, te, tp, nbits, "pairwise", "stages")
+    return _launch(x, layout, lengths, te, tp, nbits, modal, "stages")
+
+
+def warps_per_sm(layout: str, L: int, modal: str = "pairwise",
+                 variant: str = "full") -> int:
+    """Warps of a form (`variant` "stages": the clocked detector) on rows of
+    L bases that an SM of the current card holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor with the form's registers
+    and shared memory)."""
+    lib = _load()
+    warps = ctypes.c_int(0)
+    _check_rc(lib.repeat_scan_warps_per_sm(
+        _LAYOUT_IDS[layout], L, _MODAL_IDS[resolve_modal(modal)],
+        _STAGES_ID if variant == "stages"
+        else _VARIANT_IDS[check_variant(variant)],
+        ctypes.byref(warps)), f"occupancy ({layout}, {modal}, {variant})")
+    return warps.value
 
 
 def stage_cycles(device) -> dict:
@@ -223,10 +243,6 @@ def _launch(x, layout, lengths, te, tp, nbits, modal: str, variant: str):
         raise ValueError(f"nbits applies to packed rows, not {layout}")
     if L > MAX_L:
         raise ValueError(f"rows of {L} bases exceed the kernel's {MAX_L}")
-    if (modal == "sorted" and variant in ("full", "no_greedy")
-            and L > SORTED_MAX_L):
-        raise ValueError(f"rows of {L} bases exceed the sorted modal's "
-                         f"limit of {SORTED_MAX_L} bases")
     code = torch.empty(B, dtype=torch.int32, device=dev)
     ulen = torch.empty(B, dtype=torch.int32, device=dev)
     cnt = torch.empty(B, dtype=torch.int32, device=dev)

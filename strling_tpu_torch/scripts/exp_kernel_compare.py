@@ -8,12 +8,12 @@ and a torch.profiler trace of extract on the card (experiment tool).
 unpacked with `git archive`) with this one's C interface, or the earlier one
 whose launcher does not report its design (no `repeat_scan_stage_cycles`
 symbol). It is built with
-the package's nvcc flags next to itself. On each shape both kernels must give
-the same (code, length, count); then both are timed with `device_ms` (10
-launches queued behind a sleeping kernel, median of 25), twice, the second
-time in the reverse order, so the calls run other, this, this, other. Shapes:
-n8 rows of the bench mix at 4096x152 (an extract batch), 32768x152 and
-65536x152, and ASCII rows at 32768x152.
+the package's nvcc flags next to itself. On each shape and modal (pairwise,
+then sorted) both kernels must give the same (code, length, count); then
+both are timed with `device_ms` (10 launches queued behind a sleeping kernel,
+median of 25), twice, the second time in the reverse order, so the calls run
+other, this, this, other. Shapes: n8 rows of the bench mix at 4096x152 (an
+extract batch), 32768x152 and 65536x152, and ASCII rows at 32768x152.
 
 With --trace-reads N it generates the N-read bench BAM (150bp pairs, every
 20th pair's second read a pure STR; cached under .smoke_cache/), runs
@@ -101,8 +101,9 @@ def build_other(source: str):
     return lib, proc.stdout + proc.stderr
 
 
-def other_scan(lib, x, layout, lengths=None, te=None, tp=None):
-    """The other build's pairwise full form on the current stream."""
+def other_scan(lib, x, layout, lengths=None, te=None, tp=None,
+               modal="pairwise"):
+    """The other build's full form with `modal` on the current stream."""
     B, width = x.shape
     L = width if layout == "ascii" else K.payload_geometry(width, layout)[0]
     outs = [torch.empty(B, dtype=torch.int32, device=x.device)
@@ -113,7 +114,7 @@ def other_scan(lib, x, layout, lengths=None, te=None, tp=None):
               if len(lib.repeat_scan_launch.argtypes) > 15 else [])
     rc = lib.repeat_scan_launch(
         x.data_ptr(), B, width, {"ascii": 0, "n8": 1}[layout], L, None,
-        *ptrs, 0, 0, *(t.data_ptr() for t in outs),
+        *ptrs, K.MODALS.index(modal), 0, *(t.data_ptr() for t in outs),
         torch.cuda.current_stream().cuda_stream, *design)
     if rc != 0:
         raise RuntimeError(f"the other kernel's launch failed: {rc}")
@@ -136,21 +137,23 @@ def compare(lib, dev, emit):
             named = {k: torch.from_numpy(v).to(dev) for k, v in
                      (("lengths", lengths), ("te", te), ("tp", tp))}
 
-        def this():
-            return kmer_cuda.repeat_scan(x, layout, modal="pairwise", **named)
+        for modal in K.MODALS:
+            def this(modal=modal):
+                return kmer_cuda.repeat_scan(x, layout, modal=modal, **named)
 
-        def other():
-            return other_scan(lib, x, layout, **named)
+            def other(modal=modal):
+                return other_scan(lib, x, layout, modal=modal, **named)
 
-        mism = sum(int((a != b).sum()) for a, b in zip(this(), other()))
-        if mism:
-            raise RuntimeError(f"{layout} {B}x152: the kernels disagree on "
-                               f"{mism} values")
-        first = device_ms({"other": other, "this": this})
-        second = device_ms({"this": this, "other": other})
-        emit({"shape": f"{layout} {B}x152", "mismatches": mism,
-              "other_ms": [first["other"], second["other"]],
-              "this_ms": [first["this"], second["this"]]})
+            mism = sum(int((a != b).sum()) for a, b in zip(this(), other()))
+            if mism:
+                raise RuntimeError(f"{layout} {B}x152 {modal}: the kernels "
+                                   f"disagree on {mism} values")
+            first = device_ms({"other": other, "this": this})
+            second = device_ms({"this": this, "other": other})
+            emit({"shape": f"{layout} {B}x152", "modal": modal,
+                  "mismatches": mism,
+                  "other_ms": [first["other"], second["other"]],
+                  "this_ms": [first["this"], second["this"]]})
 
 
 def trace_extract(n_reads: int, dev, emit):

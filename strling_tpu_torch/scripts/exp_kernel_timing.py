@@ -20,10 +20,11 @@ reads them, and a variant's counts change what it reads (no_modal's count,
 the number of windows, keeps every k in play: it runs five recounts where
 the detector recounts k = 2 alone on most reads). The stage split comes from
 the detector's clocked form instead (`kmer_cuda.stage_cycles`, on the card
-only): each warp's clock cycles in loading (row, position codes, N count),
-window codes, modal, recount and the rest, as shares of their sum. The
-clocked form's outputs must equal the plain detector's, and its device time
-is printed beside full's (the clock reads' cost).
+only), for each modal: each warp's clock cycles in loading (row, position
+codes, N count), window codes, modal, recount and the rest, as shares of
+their sum. Each clocked form's outputs must equal the plain detector's, and
+its device time is printed (against full's or sorted's: the clock reads'
+cost).
 
     python -m strling_tpu_torch.scripts.exp_kernel_timing [--smoke] [--device cuda|cpu]
 
@@ -46,6 +47,7 @@ import torch
 
 from strling_tpu_torch.ops.kmer import (
     KS,
+    MODALS,
     _host_thresholds,
     fuse_payload,
     repeat_codes_plain,
@@ -238,7 +240,9 @@ def main(argv=None) -> dict:
         fns = {row: (lambda m=modal, v=variant: repeat_scan(
             x, entry, modal=m, variant=v, **named)) for row, modal, variant in ROWS}
         if dev.type == "cuda":
-            fns["clocked"] = lambda: repeat_scan_clocked(x, entry, **named)
+            for m in MODALS:
+                fns[f"clocked_{m}"] = (lambda m=m: repeat_scan_clocked(
+                    x, entry, modal=m, **named))
             ms = device_ms(fns)
         else:
             ms = host_ms(fns)
@@ -254,22 +258,25 @@ def main(argv=None) -> dict:
             print(f"stage split, {entry}: needs the card (the kernel's "
                   "clocked form)", flush=True)
             continue
-        stage_cycles(dev)  # clear the timing launches' cycles
-        got = repeat_scan_clocked(x, entry, **named)
-        cycles = stage_cycles(dev)
-        want = repeat_codes_plain(x, entry, modal="pairwise", **named)
-        mism = sum(int((a != b).sum()) for a, b in zip(got, want))
-        if mism:
-            raise RuntimeError(f"{entry}: the clocked form disagrees with the "
-                               f"plain detector on {mism} values")
-        total = sum(cycles.values())
-        results[(entry, "clocked")] = ms["clocked"]
-        for st in STAGES:
-            results[(entry, f"stage_{st}")] = cycles[st] / total
-        print(f"stage split, {entry} (the clocked detector, {ms['clocked']:.4f} "
-              f"ms/batch, 0 mismatches; share of {total} warp cycles):")
-        for st in STAGES:
-            print(f"  {st:8s} {cycles[st] / total * 100:5.1f}%", flush=True)
+        for m in MODALS:
+            stage_cycles(dev)  # clear the earlier launches' cycles
+            got = repeat_scan_clocked(x, entry, modal=m, **named)
+            cycles = stage_cycles(dev)
+            want = repeat_codes_plain(x, entry, modal=m, **named)
+            mism = sum(int((a != b).sum()) for a, b in zip(got, want))
+            if mism:
+                raise RuntimeError(f"{entry}: the clocked {m} form disagrees "
+                                   f"with the plain detector on {mism} values")
+            total = sum(cycles.values())
+            clocked = ms[f"clocked_{m}"]
+            results[(entry, f"clocked_{m}")] = clocked
+            for st in STAGES:
+                results[(entry, f"stage_{m}_{st}")] = cycles[st] / total
+            print(f"stage split, {entry}, {m} modal (the clocked detector, "
+                  f"{clocked:.4f} ms/batch, 0 mismatches; share of {total} "
+                  "warp cycles):")
+            for st in STAGES:
+                print(f"  {st:8s} {cycles[st] / total * 100:5.1f}%", flush=True)
     return results
 
 

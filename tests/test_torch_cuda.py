@@ -185,21 +185,35 @@ def test_sorted_kernel_f6_tile(cuda_device):
 
 @pytest.mark.cuda
 def test_sorted_kernel_row_limit(cuda_device):
-    """The sorted form takes rows up to SORTED_MAX_L bases (1024 keys a
-    thread, 32 threads a block) and refuses longer ones by name; the
-    pairwise form takes them."""
+    """The sorted form takes rows up to MAX_L bases (3,333 k = 3 windows,
+    sorted in the warp's shared memory) with the plain version's, the
+    pairwise form's and the oracle's answers, and refuses longer rows by
+    name, as the pairwise form does."""
     from strling_tpu_torch.ops import kmer_cuda
 
-    reads, bases, lengths, props = _reads(3, 40, kmer_cuda.SORTED_MAX_L, False)
+    L = kmer_cuda.MAX_L
+    rng = np.random.default_rng(3)
+    reads = ["CAG" * (L // 3) + "C", ("AAGGG" * L)[:L - 1],
+             "".join(rng.choice(list("ACGT"), L)),
+             "".join(rng.choice(["AAT", "AGT"], L // 3, p=[0.8, 0.2])),
+             ("AT" * L)[:3075], "".join(rng.choice(list("ACGT"), 3200))]
+    bases = np.zeros((len(reads), L), np.uint8)
+    for i, r in enumerate(reads):
+        bases[i, :len(r)] = np.frombuffer(r.encode(), np.uint8)
+    lengths = np.array([len(r) for r in reads], np.int32)
+    props = np.array([0.8, 0.6, 0.8, 0.5, 0.4, 0.8])
     args = _ascii_args(bases, lengths, props, cuda_device)
-    _same(repeat_scan(args[0], "ascii", *args[1:], modal="sorted"),
-          repeat_scan(args[0], "ascii", *args[1:], modal="pairwise"))
-    wide = np.zeros((40, kmer_cuda.SORTED_MAX_L + 1), np.uint8)
-    wide[:, :bases.shape[1]] = bases
+    got = repeat_scan(args[0], "ascii", *args[1:], modal="sorted")
+    _same(got, TK.repeat_codes_plain(args[0], "ascii", *args[1:],
+                                     modal="sorted"))
+    _same(got, repeat_scan(args[0], "ascii", *args[1:], modal="pairwise"))
+    _oracle_check(reads, props, *(t.cpu().numpy() for t in got))
+    wide = np.zeros((len(reads), L + 8), np.uint8)
+    wide[:, :L] = bases
     args = _ascii_args(wide, lengths, props, cuda_device)
-    with pytest.raises(ValueError, match=str(kmer_cuda.SORTED_MAX_L)):
-        repeat_scan(args[0], "ascii", *args[1:], modal="sorted")
-    repeat_scan(args[0], "ascii", *args[1:], modal="pairwise")
+    for modal in ("sorted", "pairwise"):
+        with pytest.raises(ValueError, match=str(L)):
+            repeat_scan(args[0], "ascii", *args[1:], modal=modal)
 
 
 @pytest.mark.cuda
@@ -378,8 +392,7 @@ def test_clocked_form_matches_plain(cuda_device, layout):
 @pytest.mark.cuda
 def test_launcher_reports_design(cuda_device):
     """The design in launches_by_design is the one the launcher reports:
-    warp per read for the pairwise modal and the variants, thread per read
-    where the sorted modal runs."""
+    warp per read for both modals, the variants and the clocked forms."""
     from strling_tpu_torch.ops import kmer_cuda
 
     x, _ = _layout_inputs("n8", 100, cuda_device, 3)
@@ -387,13 +400,65 @@ def test_launcher_reports_design(cuda_device):
     for modal in ("pairwise", "sorted"):
         for variant in ("full", "no_greedy", "no_modal"):
             repeat_scan(x, "n8", modal=modal, variant=variant)
-    kmer_cuda.repeat_scan_clocked(x, "n8")
+        kmer_cuda.repeat_scan_clocked(x, "n8", modal=modal)
     assert dict(kmer_cuda.launches_by_design) == {
         ("n8", "pairwise", "full", "warp_per_read"): 1,
         ("n8", "pairwise", "no_greedy", "warp_per_read"): 1,
         ("n8", "pairwise", "no_modal", "warp_per_read"): 1,
-        ("n8", "sorted", "full", "thread_per_read"): 1,
-        ("n8", "sorted", "no_greedy", "thread_per_read"): 1,
+        ("n8", "sorted", "full", "warp_per_read"): 1,
+        ("n8", "sorted", "no_greedy", "warp_per_read"): 1,
         ("n8", "sorted", "no_modal", "warp_per_read"): 1,
         ("n8", "pairwise", "stages", "warp_per_read"): 1,
+        ("n8", "sorted", "stages", "warp_per_read"): 1,
     }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["n8", "w8", "w16", "ascii", "packed"])
+def test_clocked_sorted_form_matches_plain(cuda_device, layout):
+    """The sorted detector's clocked form gives the plain version's answers
+    on every layout, at ragged row counts, and counts cycles in every
+    stage."""
+    from strling_tpu_torch.ops import kmer_cuda
+
+    for n in (33, 4097):
+        x, named = _layout_inputs(layout, n, cuda_device, 90 + n)
+        kmer_cuda.stage_cycles(cuda_device)
+        got = kmer_cuda.repeat_scan_clocked(x, layout, modal="sorted",
+                                            **named)
+        cycles = kmer_cuda.stage_cycles(cuda_device)
+        _same(got, TK.repeat_codes_plain(x, layout, modal="sorted", **named))
+        assert min(cycles.values()) > 0, cycles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["full", "no_greedy"])
+@pytest.mark.parametrize("layout", ["n8", "w8", "w16", "ascii", "packed"])
+def test_sorted_warp_kernel_every_layout(cuda_device, layout, variant):
+    """The sorted modal's warp form on every layout (ASCII with IUPAC
+    bytes, packed 2-bit rows with their N bitmask, w16 rows of 256 bases
+    with 85 k = 3 windows, past the registers' 64) at 1, 31, 33 and 4097
+    rows, against the plain version; the pairwise form gives the same."""
+    for n in (1, 31, 33, 4097):
+        x, named = _layout_inputs(layout, n, cuda_device, 110 + n)
+        got = repeat_scan(x, layout, modal="sorted", variant=variant,
+                          **named)
+        _same(got, TK.repeat_codes_plain(x, layout, modal="sorted",
+                                         variant=variant, **named))
+        _same(got, repeat_scan(x, layout, modal="pairwise", variant=variant,
+                               **named))
+
+
+@pytest.mark.cuda
+def test_sorted_warps_per_sm(cuda_device):
+    """The sorted form holds at least as many warps an SM as the pairwise
+    one (no count table), and a form too large for a block is refused."""
+    from strling_tpu_torch.ops import kmer_cuda
+
+    for layout in ("n8", "ascii", "packed"):
+        pw = kmer_cuda.warps_per_sm(layout, 152, "pairwise")
+        so = kmer_cuda.warps_per_sm(layout, 152, "sorted")
+        assert 4 <= pw <= so <= 64, (layout, pw, so)
+    assert kmer_cuda.warps_per_sm("ascii", kmer_cuda.MAX_L, "sorted") >= 4
+    with pytest.raises(RuntimeError, match="occupancy"):
+        kmer_cuda.warps_per_sm("ascii", 20 * kmer_cuda.MAX_L, "sorted")
