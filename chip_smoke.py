@@ -56,7 +56,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
        samples without the expansion, each extracted with --device cuda,
        then merge, call against the joint bounds, and outliers, which must
        name the carrier as the top outlier at the locus; the pairwise kernel
-       must launch.
+       must launch;
+  5. the parallel layer, the spec path and the profiler, each path with the
+     launch counts set to 0 just before it (ranks are fresh processes) and
+     read just after:
+     - the spec extract (`core.extract.extract`) of the main path's sample
+       on the card: its bin byte-equal to the native extract's and to the
+       spec extract's with --device cpu; the ASCII form must launch;
+     - distributed extract, 2 ranks sharing the card (Gloo), of a
+       500k-read 150bp BAM over 4 contigs with 1% of its pairs split
+       across two of them (a third of those with a CAG mate), generated
+       into .smoke_cache/ in the background from the start: the bin
+       byte-equal to one process's --device cuda bin; each rank's wall,
+       spills, gathered bytes and launches;
+     - in the same 2 ranks: merge --distributed and call --distributed -b
+       of the cohort, byte-equal to the cohort's single-process files; and
+       `dryrun_multichip` (the sharded step, the merge exchange, the O/E
+       barrier, the device forms, extract over the local cards, the golden
+       chain byte-equal to tests/golden/);
+     - a world of one on NCCL (a subprocess): run_merge_dist and
+       run_call_dist of the cohort equal to the single-process files, the
+       sharded step on cuda:0 equal to its CPU run at 4096x152, and the
+       O/E barrier against the host math;
+     - `extract --profile DIR` on the card: the trace names
+       repeat_scan_warp_kernel, and the bin is the main path's.
 
 The second-to-last line is a JSON object describing the kernel's forms, each
 entry naming its design as the launcher reported it for that form's launches
@@ -65,7 +88,8 @@ were taken and its bound (`scripts/exp_kernel_timing.scan_bound`: the larger of 
 over the card's HBM rate and the integer operations, for the k that the
 selection state machine reads on these inputs, over its int32 rate); the
 detectors' entries (pairwise and sorted) add their clocked form's time and
-stage split on n8 rows. The last line is {"ok":
+stage split on n8 rows; the repeat_scan entry adds the launches of the
+phase 5 paths (`launches_paths`). The last line is {"ok":
 true, "device": {...}}. Everything it
 generates goes under .smoke_cache/ in the checkout. It imports torch, numpy
 and strling_tpu_torch only, with `strling_tpu` and `jax` made unimportable
@@ -99,6 +123,8 @@ CACHE = os.path.join(ROOT, ".smoke_cache")
 KERNEL_SOURCE = "strling_tpu_torch/ops/csrc/repeat_scan.cu"
 PALLAS = "strling_tpu/ops/kmer_pallas.py"
 LOCUS = 20000
+#: the distributed extract's BAM: 250k pairs (500k reads) over 4 contigs
+DIST_BAM = os.path.join(CACHE, "bench4_250000.bam")
 VARIANTS = ("no_greedy", "no_modal", "winmin_only")
 #: how `ms` is taken (`ms_one_launch`, where given, is CUDA events around one
 #: launch, which also count the host's time to issue it)
@@ -699,11 +725,12 @@ def phase_packed_path(work: str, p: dict) -> int:
     return launches
 
 
-def phase_cohort(work: str, p: dict) -> int:
+def phase_cohort(work: str, p: dict):
     """The main path's carrier and four samples without the expansion,
     each extracted on the card, merged, called against the joint bounds and
     scored by outliers; the carrier must be the top outlier at the locus.
-    Returns the kernel launches of the run."""
+    Returns the kernel launches of the run, and the cohort's files and the
+    single-process call wall for phase 5."""
     say("== 4. cohort: simulate -> extract -> merge -> call -> outliers")
     from strling_tpu_torch import cli
 
@@ -728,9 +755,11 @@ def phase_cohort(work: str, p: dict) -> int:
     joint = os.path.join(d, "joint")
     cli.main(["merge", "-f", p["fa"], "-o", joint,
               *(b[:-4] + ".bin" for b in bams.values())])
+    tc = time.perf_counter()
     for s, bam in bams.items():
         cli.main(["call", "-f", p["fa"], "-b", joint + "-bounds.txt", "-o",
                   os.path.join(d, s), bam, bam[:-4] + ".bin"])
+    call_s = time.perf_counter() - tc
     cli.main(["outliers", "--out", os.path.join(d, "cohort."),
               "--genotypes", *(os.path.join(d, f"{s}-genotype.txt")
                                for s in bams),
@@ -752,7 +781,11 @@ def phase_cohort(work: str, p: dict) -> int:
     if launches <= 0 or launches != sum(counts.values()):
         raise RuntimeError("the cohort's extracts did not run on the "
                            f"pairwise repeat_scan kernel: {dict(counts)}")
-    return launches
+    n_loci = len(open(joint + "-bounds.txt").read().splitlines()) - 1
+    say(f"cohort calls (one process): {len(bams)} samples x {n_loci} joint "
+        f"loci in {call_s:.3f}s")
+    return launches, dict(dir=d, bams=bams, joint=joint, call_s=call_s,
+                          n_loci=n_loci)
 
 
 def phase_stage_tool():
@@ -776,8 +809,303 @@ def phase_stage_tool():
     return launches, results
 
 
+# ------------------------------------------------------------------ phase 5
+
+
+def start_dist_bam():
+    """Generate DIST_BAM in a background process (half a minute or more on
+    the card's host; it runs beside the build and the kernel checks).
+    Returns the process, or None when the BAM is cached."""
+    if os.path.exists(DIST_BAM):
+        return None
+    os.makedirs(CACHE, exist_ok=True)
+    return subprocess.Popen(
+        [sys.executable, "-c", f"{GUARD}; from strling_tpu_torch.scripts."
+         "exp_kernel_compare import bench_bam; bench_bam(sys.argv[1], "
+         "250_000, n_chrom=4)", DIST_BAM], cwd=ROOT)
+
+
+def _ascii_launches(counts: Counter, kind: str) -> int:
+    """The pairwise ASCII form's launches in `counts`; on the card every
+    launch of the path must be that form's."""
+    n = counts[("ascii", "pairwise", "full")]
+    if kind == "cuda" and (n <= 0 or n != sum(counts.values())):
+        raise RuntimeError(f"the path did not run on the ASCII form alone: "
+                           f"{dict(counts)}")
+    return n
+
+
+def phase_spec_extract(work: str, p: dict, kind: str = "cuda") -> int:
+    """The spec extract on the card and on the CPU; both bins must equal
+    the native extract's (the main path's CLI bin)."""
+    say("== 5. spec extract: core.extract.extract, the kernel's ASCII entry")
+    from strling_tpu_torch.core.extract import extract
+    from strling_tpu_torch.io import Bam, write_bin
+
+    paths, launches = {}, 0
+    for dev in (torch.device(kind, 0) if kind == "cuda" else
+                torch.device("cpu"), torch.device("cpu")):
+        _reset_counts()
+        t0 = time.perf_counter()
+        bam = Bam(p["bam"])
+        tb, frag, _ = extract(bam, p["fa"], p["strbed"], device=dev)
+        wall = time.perf_counter() - t0
+        if dev.type == kind:
+            launches = _ascii_launches(_counts(), kind)
+        path = os.path.join(work, f"spec_{dev.type}.bin")
+        write_bin(path, tb, frag, bam.header_text, 0.8, 40)
+        paths[dev.type] = path
+        say(f"spec extract on {dev}: {len(tb)} treads in {wall:.3f}s")
+    for name, other in (("the native extract's", p["binp"]),
+                        ("--device cpu's", paths["cpu"])):
+        if not _same_file(paths[kind], other):
+            raise RuntimeError(f"spec extract bin differs from {name}")
+        say(f"spec extract bin byte-identical to {name}")
+    say(f"spec extract launches: {launches} (ASCII, pairwise)")
+    return launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _run_ranks(script: str, args: dict, world: int, timeout: int = 600):
+    """`script` as `world` ranks of one torchrun-style group on this host;
+    returns the JSON object each rank prints last. Every rank is stopped
+    before this returns."""
+    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, json.dumps(args)], cwd=ROOT,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+        text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"ranks {bad} failed")
+    return [json.loads(o.strip().splitlines()[-1]) for o in outs]
+
+
+RANKS_SCRIPT = GUARD + """
+import json, time
+import torch
+import torch.distributed as dist
+from strling_tpu_torch import cli
+from strling_tpu_torch.ops import kmer_cuda
+from strling_tpu_torch.parallel.dryrun import dryrun_multichip
+from strling_tpu_torch.parallel.extract_dist import run_extract_dist
+from strling_tpu_torch.parallel.mesh import init_distributed
+a = json.loads(sys.argv[1])
+dev = init_distributed(a["kind"])
+out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+       "device": str(dev)}
+kmer_cuda.launches = 0
+st = {}
+run_extract_dist(a["bam"], output_bin=a["bin"], device=dev, stats=st)
+out["extract"] = dict(st, launches=kmer_cuda.launches)
+dist.barrier()
+t0 = time.perf_counter()
+cli.main(["merge", "--distributed", "--device", a["kind"], "-f", a["fa"],
+          "-o", a["joint"], *a["bins"]])
+out["merge_s"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+for s, (bam, binp) in a["samples"].items():
+    cli.main(["call", "--distributed", "--device", a["kind"], "-f", a["fa"],
+              "-b", a["bounds"], "-o", a["prefix"] + s, bam, binp])
+out["call_s"] = time.perf_counter() - t0
+kmer_cuda.launches = 0
+t0 = time.perf_counter()
+out["dryrun"] = dryrun_multichip(dev)
+out["dryrun_s"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def _cohort_args(cohort: dict, tag: str) -> dict:
+    d, bams = cohort["dir"], cohort["bams"]
+    return dict(bins=[b[:-4] + ".bin" for b in bams.values()],
+                samples={s: (b, b[:-4] + ".bin") for s, b in bams.items()},
+                bounds=cohort["joint"] + "-bounds.txt",
+                joint=os.path.join(d, f"{tag}_joint"),
+                prefix=os.path.join(d, f"{tag}_"))
+
+
+def _check_cohort_files(cohort: dict, a: dict, samples, label: str):
+    pairs = [(a["joint"] + "-bounds.txt", cohort["joint"] + "-bounds.txt")]
+    for s in samples:
+        for suffix in ("-genotype.txt", "-bounds.txt", "-unplaced.txt"):
+            pairs.append((a["prefix"] + s + suffix,
+                          os.path.join(cohort["dir"], s + suffix)))
+    for got, want in pairs:
+        if not _same_file(got, want):
+            raise RuntimeError(f"{label}: {got} differs from {want}")
+    say(f"{label}: merge bounds and {len(samples)} samples' genotype, bounds "
+        f"and unplaced files byte-identical to the single-process files")
+
+
+def phase_two_ranks(work: str, p: dict, cohort: dict, gen,
+                    kind: str = "cuda") -> dict:
+    """Two ranks sharing the card (Gloo): distributed extract of DIST_BAM
+    against one process's bin, merge and call of the cohort, and the
+    dryrun."""
+    say("== 5. two ranks on one card (Gloo): distributed extract, merge, "
+        "call, dryrun")
+    from strling_tpu_torch.core.extract import extract_native
+    from strling_tpu_torch.io import Bam, write_bin
+
+    if gen is not None:
+        t0 = time.perf_counter()
+        if gen.wait() != 0:
+            raise RuntimeError("generating the distributed BAM failed")
+        say(f"waited {time.perf_counter() - t0:.1f}s for {DIST_BAM}")
+    dev = torch.device(kind, 0) if kind == "cuda" else torch.device("cpu")
+    _reset_counts()
+    t0 = time.perf_counter()
+    bam = Bam(DIST_BAM)
+    tb, frag, _ = extract_native(bam, None, None, devices=[dev])
+    single_s = time.perf_counter() - t0
+    single_launches = sum(_counts().values())
+    single = os.path.join(work, "dist_single.bin")
+    write_bin(single, tb, frag, bam.header_text, 0.8, 40)
+    say(f"one process, --device {kind}: {len(tb)} treads in {single_s:.3f}s, "
+        f"{single_launches} launches")
+    a = dict(_cohort_args(cohort, "ranks2"), kind=kind, bam=DIST_BAM,
+             bin=os.path.join(work, "dist_2ranks.bin"), fa=p["fa"])
+    t0 = time.perf_counter()
+    outs = _run_ranks(RANKS_SCRIPT, a, 2)
+    wall = time.perf_counter() - t0
+    if not _same_file(a["bin"], single):
+        raise RuntimeError("2-rank extract bin differs from one process's")
+    for o in outs:
+        e = o["extract"]
+        say(f"rank {o['rank']} ({o['backend']}, {o['device']}): tids "
+            f"{e['tids']}, extract wall {e['wall_s']:.3f}s, treads "
+            f"{e['treads_local']}, spills {e['spills_local']} (of "
+            f"{e['spills_total']}), gathered {e['gathered_bytes']} bytes, "
+            f"launches {e['launches']}; merge {o['merge_s']:.3f}s, "
+            f"{len(a['samples'])} calls {o['call_s']:.3f}s, dryrun "
+            f"{o['dryrun_s']:.3f}s ({o['dryrun']['launches']} launches, "
+            f"golden chain {o['dryrun']['golden_chain']})")
+    say(f"2-rank extract bin byte-identical to one process's "
+        f"({os.path.getsize(single)} bytes); ranks' run {wall:.1f}s")
+    if outs[0]["backend"] != "gloo":
+        raise RuntimeError(f"two ranks on one card must use Gloo: {outs[0]}")
+    if kind == "cuda" and min(o["extract"]["launches"] for o in outs) <= 0:
+        raise RuntimeError("a rank's extract launched no kernel")
+    _check_cohort_files(cohort, a, a["samples"], "2-rank merge and call")
+    return dict(extract=[o["extract"]["launches"] for o in outs],
+                dryrun=[o["dryrun"]["launches"] for o in outs],
+                call_s=max(o["call_s"] for o in outs), single_s=single_s,
+                ranks_extract_s=[o["extract"]["wall_s"] for o in outs])
+
+
+NCCL_SCRIPT = GUARD + """
+import json
+import numpy as np
+import torch
+import torch.distributed as dist
+from strling_tpu_torch.ops import kmer_cuda
+from strling_tpu_torch.parallel.call_dist import rank_oes_on_mesh, run_call_dist
+from strling_tpu_torch.parallel.dryrun import sharded_step_on_rank
+from strling_tpu_torch.parallel.merge_dist import run_merge_dist
+from strling_tpu_torch.parallel.mesh import init_distributed
+a = json.loads(sys.argv[1])
+dev = init_distributed(a["kind"])
+out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+run_merge_dist(a["bins"], fasta=a["fa"], output_prefix=a["joint"])
+for s, (bam, binp) in a["samples"].items():
+    run_call_dist(bam, binp, fasta=a["fa"], bounds_path=a["bounds"],
+                  output_prefix=a["prefix"] + s, device=dev)
+kmer_cuda.launches = 0
+card = sharded_step_on_rank(dev, B=4096, L=152)
+out["step_launches"] = kmer_cuda.launches
+cpu = sharded_step_on_rank(torch.device("cpu"), B=4096, L=152)
+out["step_equal"] = all(np.array_equal(x, y) for x, y in zip(card, cpu))
+out["n_str"] = card[5].tolist()
+oes = np.array([0.5, np.nan, 2.0, np.inf, 0.5, -1.0, 3.25], np.float32)
+want = (np.searchsorted(np.sort(oes), oes, side="left").astype(np.float32)
+        / np.float32(len(oes) - 1))
+out["oe_equal"] = rank_oes_on_mesh(oes, dev).tobytes() == want.tobytes()
+print(json.dumps(out))
+"""
+
+
+def phase_nccl_world_of_one(p: dict, cohort: dict, kind: str = "cuda"):
+    """A world of one on NCCL (no torchrun environment): the only NCCL
+    group one card allows."""
+    say("== 5. a world of one on NCCL: merge, call, sharded step, O/E barrier")
+    samples = {"c2": cohort["bams"]["c2"]}
+    a = dict(_cohort_args(cohort, "nccl"), kind=kind, fa=p["fa"])
+    a["samples"] = {s: (b, b[:-4] + ".bin") for s, b in samples.items()}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT", "LOCAL_WORLD_SIZE")}
+    out = subprocess.run([sys.executable, "-c", NCCL_SCRIPT, json.dumps(a)],
+                         cwd=ROOT, env=env, stdout=subprocess.PIPE, text=True,
+                         check=True, timeout=600).stdout
+    o = json.loads(out.strip().splitlines()[-1])
+    say(f"world of one: backend {o['backend']}, sharded step 4096x152 "
+        f"{o['step_launches']} launches, equal to its CPU run "
+        f"{o['step_equal']} (n_str {o['n_str']}), O/E barrier equal "
+        f"{o['oe_equal']}")
+    if kind == "cuda" and o["backend"] != "nccl":
+        raise RuntimeError(f"a world of one on the card must be NCCL: {o}")
+    if not (o["step_equal"] and o["oe_equal"] and o["world"] == 1):
+        raise RuntimeError(f"world of one disagrees: {o}")
+    if kind == "cuda" and o["step_launches"] <= 0:
+        raise RuntimeError("the sharded step launched no kernel")
+    _check_cohort_files(cohort, a, a["samples"], "NCCL world of one")
+    return o["step_launches"]
+
+
+def phase_profile(work: str, p: dict, kind: str = "cuda") -> int:
+    """extract --profile on the card: the trace must name the kernel."""
+    say("== 5. extract --profile")
+    from strling_tpu_torch import cli
+
+    trace = os.path.join(work, "trace")
+    binp = os.path.join(work, "profiled.bin")
+    _reset_counts()
+    cli.main(["extract", "--device", kind, "--profile", trace, "-f", p["fa"],
+              "-g", p["strbed"], p["bam"], binp])
+    launches = sum(_counts().values())
+    with open(os.path.join(trace, "extract.pt.trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    hits = [e for e in events if "repeat_scan_warp_kernel" in e.get("name", "")
+            and e.get("cat") == "kernel"]
+    say(f"trace: {len(events)} events, {len(hits)} kernel events named "
+        f"repeat_scan_warp_kernel ({sum(e.get('dur', 0) for e in hits)} us); "
+        f"launches {launches}")
+    if kind == "cuda" and (not hits or launches <= 0):
+        raise RuntimeError("the profiled extract's trace does not name "
+                           "repeat_scan_warp_kernel")
+    if not _same_file(binp, p["binp"]):
+        raise RuntimeError("the profiled extract's bin differs")
+    return launches
+
+
 def main():
     phase_env()
+    gen = start_dist_bam()
+    try:
+        _main(gen)
+    finally:
+        if gen is not None and gen.poll() is None:
+            gen.kill()
+            gen.wait()
+
+
+def _main(gen):
     phase_build()
     checks = KernelChecks()
     checks.pairwise()
@@ -794,7 +1122,20 @@ def main():
     launches["repeat_scan[sorted]"] = phase_sorted_path(work, paths)
     launches["repeat_scan[packed]"] = phase_packed_path(work, paths)
     stage_launches, stage_ms = phase_stage_tool()
-    cohort_launches = phase_cohort(work, paths)
+    cohort_launches, cohort = phase_cohort(work, paths)
+    t5 = time.perf_counter()
+    paths_launches = {"spec_extract": phase_spec_extract(work, paths)}
+    ranks = phase_two_ranks(work, paths, cohort, gen)
+    paths_launches["dist_extract_ranks"] = ranks["extract"]
+    paths_launches["dryrun_ranks"] = ranks["dryrun"]
+    paths_launches["nccl_sharded_step"] = phase_nccl_world_of_one(paths,
+                                                                  cohort)
+    paths_launches["profile_extract"] = phase_profile(work, paths)
+    say(f"phase 5 in {time.perf_counter() - t5:.1f}s; cohort calls: one "
+        f"process {cohort['call_s']:.3f}s, two ranks {ranks['call_s']:.3f}s "
+        f"({len(cohort['bams'])} samples x {cohort['n_loci']} loci); "
+        f"distributed extract: one process {ranks['single_s']:.3f}s, ranks "
+        f"{ranks['ranks_extract_s']}")
     for v in VARIANTS:
         launches[f"repeat_scan[{v}]"] = stage_launches[v]
         checks.timings[(f"repeat_scan[{v}]", 32768)]["ms"] = stage_ms[("n8", v)]
@@ -824,6 +1165,7 @@ def main():
                  "timing": TIMING, "plain_timing": t["plain_timing"]}
         if name == "repeat_scan":
             entry["launches_cohort"] = cohort_launches
+            entry["launches_paths"] = paths_launches
         if name in ("repeat_scan", "repeat_scan[sorted]"):
             entry["clocked_ms"] = stage_ms[("n8", f"clocked_{modal}")]
             prefix = f"stage_{modal}_"

@@ -4,7 +4,11 @@ The same subcommands, flags and output files as `strling_tpu.cli` (the
 reference dispatcher, src/strling.nim:12-44). `extract` and `index` run the
 port, on the device given by `--device` (`cuda`, the default, needs a card;
 `cpu` runs the plain PyTorch scan). The other subcommands are host code: the
-port's copies of the reference's implementations.
+port's copies of the reference's implementations. `extract`, `merge` and
+`call` take `--distributed` (one torch.distributed rank a device; launch with
+`torchrun --nproc-per-node N -m strling_tpu_torch.cli ...`), `extract` and
+`call` take `--profile DIR` (a torch.profiler trace). The JAX package's
+`--platform` and its compile cache are JAX's own and have no counterpart.
 
   extract      extract informative STR reads from a BAM. Required first step.
   merge        merge putative STR loci from multiple samples (joint calling).
@@ -23,10 +27,6 @@ import sys
 
 from strling_tpu_torch import __version__
 
-#: flags of the JAX package that the port does not carry yet
-NOT_PORTED = ("--profile", "--distributed")
-
-
 def _add_device(p):
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the repeat-unit scan runs: cuda (default; needs a"
@@ -40,22 +40,43 @@ def _extract(argv):
     p.add_argument("-p", "--proportion-repeat", type=float, default=0.8, help="proportion of read that is repetitive to be considered as STR")
     p.add_argument("-q", "--min-mapq", type=int, default=40, help="minimum mapping quality (does not apply to STR reads)")
     p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--profile", default="", help="write a torch.profiler trace of extract to this directory")
     _add_device(p)
     p.add_argument("--devices", default="", help="with --device cuda: 'all' or a count of local GPUs to round-robin scan batches over (output is byte-identical)")
+    p.add_argument("--distributed", action="store_true",
+                   help="shard chromosomes over torch.distributed ranks (launch with torchrun; one rank a device); rank 0 writes the bin")
     p.add_argument("bam", help="path to bam file")
     p.add_argument("bin", help="path to output bin file to be created")
     args = p.parse_args(argv)
 
     from strling_tpu_torch.core.extract import extract_native, scan_devices
     from strling_tpu_torch.io import Bam, write_bin
+    from strling_tpu_torch.utils.profiling import maybe_trace
+
+    if args.distributed:
+        if args.devices:
+            raise SystemExit("--devices does not apply to --distributed: "
+                             "each rank scans on its own device")
+        from strling_tpu_torch.parallel.extract_dist import run_extract_dist
+        from strling_tpu_torch.parallel.mesh import init_distributed
+
+        run_extract_dist(
+            args.bam, args.fasta or None, args.genome_repeats or None,
+            proportion_repeat=args.proportion_repeat, min_mapq=args.min_mapq,
+            output_bin=args.bin, verbose=args.verbose,
+            device=init_distributed(args.device),
+        )
+        print("[strling] finished extraction", file=sys.stderr)
+        return
 
     devs = scan_devices(args.device, args.devices or None)
     bam = Bam(args.bam, fasta=args.fasta or None)
-    treads, frag_dist, _ = extract_native(
-        bam, args.fasta or None, args.genome_repeats or None,
-        proportion_repeat=args.proportion_repeat, min_mapq=args.min_mapq,
-        verbose=args.verbose, devices=devs,
-    )
+    with maybe_trace(args.profile or None, "extract"):
+        treads, frag_dist, _ = extract_native(
+            bam, args.fasta or None, args.genome_repeats or None,
+            proportion_repeat=args.proportion_repeat, min_mapq=args.min_mapq,
+            verbose=args.verbose, devices=devs,
+        )
     print(f"[strling] writing binary file:{args.bin}", file=sys.stderr)
     write_bin(args.bin, treads, frag_dist, bam.header_text,
               args.proportion_repeat, args.min_mapq)
@@ -134,10 +155,6 @@ def main(argv=None):
         if argv:
             print(f"unknown program '{argv[0]}'")
         raise SystemExit("ERROR: please enter a valid command")
-    for flag in NOT_PORTED:
-        if any(a == flag or a.startswith(flag + "=") for a in argv[1:]):
-            raise SystemExit(f"ERROR: {argv[0]} {flag} is not ported to "
-                             "strling_tpu_torch yet; use strling_tpu.cli")
     COMMANDS[argv[0]][0](argv[1:])
     return 0
 

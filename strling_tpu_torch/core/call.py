@@ -300,6 +300,7 @@ def run_call(bam_path: str, bin_path: str, fasta: str | None = None,
 def call_main(argv):
     p = argparse.ArgumentParser("strling call")
     p.add_argument("-f", "--fasta", default="", help="path to fasta file")
+    p.add_argument("--profile", default="", help="write a torch.profiler trace to this directory")
     p.add_argument("-m", "--min-support", type=int, default=5)
     p.add_argument("-c", "--min-clip", type=int, default=0)
     p.add_argument("-t", "--min-clip-total", type=int, default=0)
@@ -310,9 +311,37 @@ def call_main(argv):
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--debug", action="store_true",
                    help="also write -reads.txt/-spanning.txt evidence files")
+    p.add_argument("--distributed", action="store_true",
+                   help="shard per-locus genotyping over torch.distributed "
+                        "ranks (launch with torchrun); rank 0 writes "
+                        "byte-identical outputs")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="with --distributed: this rank's device, where the "
+                        "O/E percentile barrier sorts: cuda (default) or cpu")
     p.add_argument("bam")
     p.add_argument("bin")
     a = p.parse_args(argv)
+    from strling_tpu_torch.utils.profiling import maybe_trace
+
+    with maybe_trace(a.profile or None, "call"):
+        _run_call_cli(a)
+
+
+def _run_call_cli(a):
+    if a.distributed:
+        if a.debug:
+            raise SystemExit(
+                "--debug evidence files are not supported with "
+                "--distributed; run single-process call for debugging")
+        from strling_tpu_torch.parallel.call_dist import run_call_dist
+        from strling_tpu_torch.parallel.mesh import init_distributed
+
+        device = init_distributed(a.device)
+        run_call_dist(a.bam, a.bin, a.fasta or None, a.min_support,
+                      a.min_clip, a.min_clip_total, a.min_mapq,
+                      a.loci or None, a.bounds or None, a.output_prefix,
+                      a.verbose, device=device)
+        return
     run_call(a.bam, a.bin, a.fasta or None, a.min_support, a.min_clip,
              a.min_clip_total, a.min_mapq, a.loci or None, a.bounds or None,
              a.output_prefix, a.verbose, a.debug)

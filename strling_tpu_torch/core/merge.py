@@ -178,8 +178,27 @@ def merge_main(argv):
     p.add_argument("-o", "--output-prefix", default="strling")
     p.add_argument("-d", "--diff-refs", action="store_true")
     p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="shard locus space over torch.distributed ranks "
+                        "(launch with torchrun; one rank alone without it)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="with --distributed: this rank's device, cuda "
+                        "(default; NCCL or Gloo by the backend rule) or cpu "
+                        "(Gloo)")
     p.add_argument("bin", nargs="+")
     a = p.parse_args(argv)
+    if a.distributed:
+        from strling_tpu_torch.parallel.merge_dist import run_merge_dist
+        from strling_tpu_torch.parallel.mesh import init_distributed
+
+        init_distributed(a.device)
+        run_merge_dist(
+            a.bin, a.fasta or None, a.window, a.min_support,
+            None if a.chromosome == "-2" else a.chromosome, a.min_clip,
+            a.min_clip_total, a.min_mapq, a.bed or None, a.output_prefix,
+            a.verbose,
+        )
+        return
     run_merge(
         a.bin, a.fasta or None, a.window, a.min_support,
         None if a.chromosome == "-2" else a.chromosome, a.min_clip,

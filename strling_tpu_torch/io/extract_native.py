@@ -84,6 +84,21 @@ def _bind(lib):
     lib.sio_ex_get_hist.restype = C.c_int
     lib.sio_ex_get_hist.argtypes = [C.c_void_p, P(np.uint32),
                                     C.POINTER(C.c_int32)]
+    lib.sio_ex_set_shard.restype = C.c_int
+    lib.sio_ex_set_shard.argtypes = [C.c_void_p, P(np.int32), C.c_int64, C.c_int]
+    lib.sio_ex_get_keys.restype = C.c_int64
+    lib.sio_ex_get_keys.argtypes = [
+        C.c_void_p, C.c_int, P(np.uint8), P(np.int32), P(np.int64),
+        P(np.uint8),
+    ]
+    lib.sio_ex_n_spill.restype = C.c_int64
+    lib.sio_ex_n_spill.argtypes = [C.c_void_p]
+    lib.sio_ex_get_spill.restype = C.c_int64
+    lib.sio_ex_get_spill.argtypes = [
+        C.c_void_p, P(np.int32), P(np.uint32), P(np.uint8), P(np.uint16),
+        P(np.uint8), P(np.uint8), P(np.uint8), P(np.uint8), C.c_char_p,
+        C.c_int64, P(np.int64),
+    ]
 
 
 _bound = False
@@ -106,12 +121,15 @@ def peek_max_len(bam: Bam, n_records: int = 10_000) -> int:
 
 
 def native_frag_hist(bam: Bam, skip_reads: int = TEE_SKIP,
-                     n_reads: int = TEE_TAKE):
+                     n_reads: int = TEE_TAKE, return_max_len: bool = False):
     """The fragment-length histogram (uint32[4096]) of `n_reads` records
-    that pass its predicate, after skipping `skip_reads`."""
+    that pass its predicate, after skipping `skip_reads`; with
+    `return_max_len`, (histogram, the longest read the pass saw)."""
     hist = np.zeros(4096, np.uint32)
     maxlen = C.c_int32(0)
     _lib().sio_frag_hist(bam._h, skip_reads, n_reads, hist, C.byref(maxlen))
+    if return_max_len:
+        return hist, int(maxlen.value)
     return hist
 
 
@@ -233,9 +251,41 @@ class NativeExtractor:
     def nreads(self) -> int:
         return int(self.lib.sio_ex_nreads(self._e))
 
+    def set_shard(self, tids, include_unplaced: bool):
+        """Restrict this engine to a tid shard (distributed extract); must be
+        called before the first batch. Requires an index on the input."""
+        rc = self.lib.sio_ex_set_shard(
+            self._e, np.ascontiguousarray(tids, np.int32), len(tids),
+            1 if include_unplaced else 0,
+        )
+        if rc != 0:
+            raise RuntimeError("set_shard must be called before reading")
+
     def treads(self) -> TreadBatch:
+        return self._read_treads(self.lib.sio_ex_n_treads,
+                                 self.lib.sio_ex_get_treads)
+
+    def spill(self) -> TreadBatch:
+        """Treads whose mates live in other shards (sharded mode only)."""
+        return self._read_treads(self.lib.sio_ex_n_spill,
+                                 self.lib.sio_ex_get_spill)
+
+    def emission_keys(self, which: int = 0):
+        """(seg, tid, rank, sub) emission-order key arrays for the output
+        (which=0) or spill (which=1) treads; sorting gathered shard treads
+        by this key reproduces the sequential bin order exactly."""
         lib = self.lib
-        n = int(lib.sio_ex_n_treads(self._e))
+        n = int(lib.sio_ex_n_spill(self._e) if which
+                else lib.sio_ex_n_treads(self._e))
+        seg = np.empty(n, np.uint8)
+        ktid = np.empty(n, np.int32)
+        krank = np.empty(n, np.int64)
+        ksub = np.empty(n, np.uint8)
+        lib.sio_ex_get_keys(self._e, which, seg, ktid, krank, ksub)
+        return seg, ktid, krank, ksub
+
+    def _read_treads(self, count_fn, get_fn) -> TreadBatch:
+        n = int(count_fn(self._e))
         tid = np.empty(n, np.int32)
         position = np.empty(n, np.uint32)
         repeat6 = np.empty(n * 6, np.uint8)
@@ -247,7 +297,7 @@ class NativeExtractor:
         qcap = n * 256 + 16
         qbuf = C.create_string_buffer(qcap)
         qoff = np.empty(n + 1, np.int64)
-        rc = lib.sio_ex_get_treads(
+        rc = get_fn(
             self._e, tid, position, repeat6, flag, split, mapq, repeat_count,
             align_length, qbuf, qcap, qoff,
         )

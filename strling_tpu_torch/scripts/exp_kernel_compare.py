@@ -46,9 +46,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
 CACHE = os.path.join(ROOT, ".smoke_cache")
 
 
-def bench_bam(path: str, n_pairs: int, seed: int = 7):
+def bench_bam(path: str, n_pairs: int, seed: int = 7, n_chrom: int = 1):
     """bench.py's _bench_bam: 150bp proper pairs, every 20th pair's second
-    read a pure STR, the rest random sequence, on one 50Mb contig."""
+    read a pure STR, the rest random sequence, on one 50Mb contig.
+
+    With n_chrom > 1 the 50Mb are n_chrom contigs (chrB0, chrB1, ...) and
+    one pair in 100 is split across two of them (the second read on the next
+    contig, not a proper pair; in every third such pair that read is a pure
+    CAG at mapping quality 0): the mate traffic between the shards of a
+    distributed extract. The proper pairs are the one-contig BAM's."""
     from strling_tpu_torch.io import BamRecord, write_bam
 
     rng = np.random.default_rng(seed)
@@ -59,8 +65,11 @@ def bench_bam(path: str, n_pairs: int, seed: int = 7):
     pos = np.sort(rng.integers(0, G - 2000, n_pairs))
     isizes = rng.integers(300, 500, n_pairs)
     seqs = alphabet[rng.integers(0, 4, (n_pairs, 2, L))]
+    C = G // n_chrom
+    names = ["chrB"] if n_chrom == 1 else [f"chrB{t}" for t in range(n_chrom)]
     for i in range(n_pairs):
-        p = int(pos[i])
+        t, p = divmod(int(pos[i]), C)
+        p = min(p, C - 2000)
         isz = int(isizes[i])
         s1 = "".join(seqs[i, 0])
         s2 = "".join(seqs[i, 1])
@@ -68,13 +77,22 @@ def bench_bam(path: str, n_pairs: int, seed: int = 7):
             u = units[i % len(units)]
             s2 = (u * (L // len(u) + 1))[:L]
         q = f"r{i}"
-        recs.append(BamRecord(q, 0x63, 0, p, 60, [(L, 0)], 0, p + isz - L,
+        if n_chrom > 1 and i % 100 == 50:
+            t2, p2, mq2 = (t + 1) % n_chrom, p + isz, 60
+            if i % 300 == 50:
+                s2, mq2 = ("CAG" * 50)[:L], 0
+            recs.append(BamRecord(q, 0x61, t, p, 60, [(L, 0)], t2, p2, 0, s1))
+            recs.append(BamRecord(q, 0x91, t2, p2, mq2, [(L, 0)], t, p, 0,
+                                  s2))
+            continue
+        recs.append(BamRecord(q, 0x63, t, p, 60, [(L, 0)], t, p + isz - L,
                               isz, s1))
-        recs.append(BamRecord(q, 0x93, 0, p + isz - L, 60, [(L, 0)], 0, p,
+        recs.append(BamRecord(q, 0x93, t, p + isz - L, 60, [(L, 0)], t, p,
                               -isz, s2))
-    recs.sort(key=lambda r: r.pos)
-    hdr = "@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chrB\tLN:%d\n" % G
-    write_bam(path + ".tmp", hdr, [("chrB", G)], recs)
+    recs.sort(key=lambda r: (r.tid, r.pos))
+    hdr = "@HD\tVN:1.6\tSO:coordinate\n" + "".join(
+        f"@SQ\tSN:{n}\tLN:{C}\n" for n in names)
+    write_bam(path + ".tmp", hdr, [(n, C) for n in names], recs)
     os.replace(path + ".tmp.bai", path + ".bai")
     os.replace(path + ".tmp", path)
 

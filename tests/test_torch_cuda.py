@@ -462,3 +462,111 @@ def test_sorted_warps_per_sm(cuda_device):
     assert kmer_cuda.warps_per_sm("ascii", kmer_cuda.MAX_L, "sorted") >= 4
     with pytest.raises(RuntimeError, match="occupancy"):
         kmer_cuda.warps_per_sm("ascii", 20 * kmer_cuda.MAX_L, "sorted")
+
+
+# ------------------------------------------------ the spec path, the parallel
+# layer at a world of one (NCCL) and the device forms, on the card
+
+
+def _small_str_bam(path):
+    """Background pairs, an anchored CAG read, a soft-clipped CAG read and
+    an unplaced pair (tests/test_extract.py's scenario)."""
+    from strling_tpu_torch.io import BamRecord, write_bam
+
+    rng = np.random.default_rng(7)
+    alpha = np.array(list("ACGT"))
+
+    def seq(n):
+        return "".join(alpha[rng.integers(0, 4, n)])
+
+    recs = []
+    for i in range(300):
+        pos, isz = 1000 + i * 29, 350 + int(rng.integers(-30, 30))
+        recs.append(BamRecord(f"bg{i}", 99, 0, pos, 60, "100M", 0,
+                              pos + isz - 100, isz, seq(100)))
+        recs.append(BamRecord(f"bg{i}", 147, 0, pos + isz - 100, 60, "100M",
+                              0, pos, -isz, seq(100)))
+    recs.append(BamRecord("str1", 97, 0, 50000, 60, "100M", 0, 50250, 350,
+                          seq(100)))
+    recs.append(BamRecord("str1", 145, 0, 50250, 0, "100M", 0, 50000, -350,
+                          "CAG" * 33 + "C"))
+    recs.append(BamRecord("clip1", 99, 0, 50100, 60, "100M", 0, 50300, 300,
+                          seq(100)))
+    recs.append(BamRecord("clip1", 147, 0, 50300, 60, "60S40M", 0, 50100,
+                          -300, "CAG" * 20 + seq(40)))
+    recs.append(BamRecord("unp1", 77, -1, -1, 0, "*", -1, -1, 0,
+                          "GAA" * 33 + "G"))
+    recs.append(BamRecord("unp1", 141, -1, -1, 0, "*", -1, -1, 0,
+                          "TTC" * 33 + "T"))
+    recs.sort(key=lambda r: (r.tid if r.tid >= 0 else 1 << 30, r.pos))
+    write_bam(path, "@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chr1\tLN:1000000\n",
+              [("chr1", 1000000)], recs)
+
+
+@pytest.mark.cuda
+def test_spec_extract_on_the_card_equals_cpu(cuda_device, tmp_path):
+    """The spec path scans through the kernel's ASCII entry on the card and
+    gives the --device cpu treads."""
+    from strling_tpu_torch.core.extract import extract
+    from strling_tpu_torch.io import Bam
+    from strling_tpu_torch.ops import kmer_cuda
+
+    path = str(tmp_path / "s.bam")
+    _small_str_bam(path)
+    before = kmer_cuda.launches_by[("ascii", TK.MODAL_IMPL, "full")]
+    got = extract(Bam(path), None, None, device=cuda_device)[0]
+    assert kmer_cuda.launches_by[("ascii", TK.MODAL_IMPL, "full")] > before
+    want = extract(Bam(path), None, None, device=torch.device("cpu"))[0]
+    assert np.array_equal(got.data, want.data) and got.qnames == want.qnames
+    assert {"str1", "clip1", "unp1"} <= set(got.qnames)
+
+
+@pytest.mark.cuda
+def test_device_forms_on_the_card_equal_cpu(cuda_device):
+    from strling_tpu_torch.ops.cluster_torch import segment_ids
+    from strling_tpu_torch.ops.genotyper_torch import genotype_model_batch
+
+    rng = np.random.default_rng(29)
+    pos = np.sort(rng.integers(0, 200_000, 400)).astype(np.int64)
+    assert np.array_equal(segment_ids(pos, 400, cuda_device),
+                          segment_ids(pos, 400, "cpu"))
+    ssc = rng.integers(0, 3000, 100)
+    depth = rng.uniform(0.5, 80.0, 100)
+    rulen = rng.integers(1, 7, 100)
+    got = genotype_model_batch(ssc, depth, rulen, cuda_device)
+    want = genotype_model_batch(ssc, depth, rulen, "cpu")
+    ok = (np.isnan(got) & np.isnan(want)) | (
+        np.abs(got - want) <= 64 * np.spacing(np.abs(want)))
+    assert ok.all()
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda_device):
+    import torch.distributed as dist
+
+    from strling_tpu_torch.parallel.mesh import init_distributed
+
+    assert init_distributed("cuda") == cuda_device
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    yield cuda_device
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_oe_barrier_and_sharded_step_on_nccl(nccl_world_of_one):
+    """A world of one on NCCL: the O/E barrier against the host math (a
+    NaN and an inf among the ratios) and the sharded step against the
+    kernel on the whole batch."""
+    from strling_tpu_torch.parallel.call_dist import rank_oes_on_mesh
+    from strling_tpu_torch.parallel.dryrun import sharded_step_on_rank
+
+    dev = nccl_world_of_one
+    oes = np.array([0.5, np.nan, 2.0, np.inf, 0.5, -1.0], np.float32)
+    allv = np.sort(oes)
+    want = (np.searchsorted(allv, oes, side="left").astype(np.float32)
+            / np.float32(len(oes) - 1))
+    assert rank_oes_on_mesh(oes, dev).tobytes() == want.tobytes()
+    on_card = sharded_step_on_rank(dev)
+    on_cpu = sharded_step_on_rank(torch.device("cpu"))
+    for a, b in zip(on_card, on_cpu):
+        assert np.array_equal(a, b)

@@ -2,7 +2,8 @@
 chip_smoke.py, imports the JAX package or JAX; the engine library is built
 from the port's own sources; and with both packages made unimportable every
 port module imports and all seven subcommands of the port's CLI run on the
-CPU."""
+CPU, with `extract`/`merge`/`call --distributed` (a world of one) and
+`extract`/`call --profile`."""
 
 import ast
 import os
@@ -117,6 +118,23 @@ main(["outliers", "--genotypes", os.path.join(d, "s1-genotype.txt"),
       "--unplaced", os.path.join(d, "s1-unplaced.txt"), "--out", d + "/"])
 main(["pull_region", "-o", os.path.join(d, "region.bam"), bam,
       "chr1:14500-15500"])
+# the parallel layer as a world of one (Gloo), and the profiler
+j = lambda name: os.path.join(d, name)
+same = lambda a, b: open(j(a), "rb").read() == open(j(b), "rb").read()
+main(["extract", "--distributed", "--device", "cpu", "-f", fa, "-g",
+      j("ref.str"), bam, j("dist.bin")])
+main(["merge", "--distributed", "--device", "cpu", "-o", j("joint_dist"),
+      j("s.bin")])
+main(["call", "--distributed", "--device", "cpu", "-o", j("s1_dist"), bam,
+      j("s.bin")])
+assert same("dist.bin", "s.bin")
+assert same("joint_dist-bounds.txt", "joint-bounds.txt")
+for suffix in ("-genotype.txt", "-bounds.txt", "-unplaced.txt"):
+    assert same("s1_dist" + suffix, "s1" + suffix), suffix
+main(["extract", "--device", "cpu", "--profile", j("trace"), bam,
+      j("prof.bin")])
+main(["call", "--profile", j("ctrace"), "-o", j("s1_prof"), bam, j("s.bin")])
+assert same("s1_prof-genotype.txt", "s1-genotype.txt")
 loaded = sorted(k for k, v in sys.modules.items() if v is not None and
                 k.split(".")[0] in ("strling_tpu", "jax", "jaxlib"))
 assert not loaded, loaded
@@ -133,7 +151,8 @@ def test_port_cli_runs_with_reference_and_jax_blocked(tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
     assert "standalone ok" in out.stdout
     for name in ("ref.str", "s.bin", "joint-bounds.txt", "s1-genotype.txt",
-                 "s1-bounds.txt", "STRs.tsv", "region.bam"):
+                 "s1-bounds.txt", "STRs.tsv", "region.bam",
+                 "trace/extract.pt.trace.json", "ctrace/call.pt.trace.json"):
         assert os.path.getsize(tmp_path / name) > 0, name
     assert "AGC" in (tmp_path / "ref.str").read_text()
     assert "chr1" in (tmp_path / "s1-bounds.txt").read_text()
