@@ -79,7 +79,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
        sharded step on cuda:0 equal to its CPU run at 4096x152, and the
        O/E barrier against the host math;
      - `extract --profile DIR` on the card: the trace names
-       repeat_scan_warp_kernel, and the bin is the main path's.
+       repeat_scan_warp_kernel, and the bin is the main path's;
+  6. CRAM, the accuracy sweep, the cohort demo and the profiler on two
+     ranks, each path with the launch counts set to 0 just before it and
+     read just after:
+     - the main path's sample written as four CRAMs by the port's writer
+       (`io/cramwrite.write_cram`, slice_size=500: CRAM 3.0; 3.1; 3.1 with
+       arith and fqzcomp; bzip2 + lzma blocks), in a background process
+       from the end of phase 4 on; each extracted on the card through `cli
+       extract --device cuda -f ref.fa`, its bin byte-identical to the BAM's
+       (phase 4); the spec extract of the 3.1 arith CRAM equal to the BAM's
+       spec bin (phase 5); the engine library opened must be the compat
+       build (`deflate_on_zlib-lzma_by_soname`: CRAM's gzip, bzip2 and lzma
+       blocks decode through the compat layer); both paths must launch;
+     - `sim_sweep random --n-samples 4 --flank 3000 --depth 30` on
+       `--device cuda` and on `--device cpu`: CSVs and summary.md
+       byte-identical; the ASCII form must launch;
+     - `cohort_demo --n 4 --procs 2 --device cuda`: two ranks sharing the
+       card (Gloo) give bounds byte-identical to one process's run_merge;
+       the extracts must launch;
+     - `call --distributed --profile DIR` on two ranks (fault F10): one
+       trace file a rank, and the files byte-identical to the main path's
+       single-process call.
 
 The second-to-last line is a JSON object describing the kernel's forms, each
 entry naming its design as the launcher reported it for that form's launches
@@ -89,7 +110,7 @@ over the card's HBM rate and the integer operations, for the k that the
 selection state machine reads on these inputs, over its int32 rate); the
 detectors' entries (pairwise and sorted) add their clocked form's time and
 stage split on n8 rows; the repeat_scan entry adds the launches of the
-phase 5 paths (`launches_paths`). The last line is {"ok":
+phase 5 and 6 paths (`launches_paths`). The last line is {"ok":
 true, "device": {...}}. Everything it
 generates goes under .smoke_cache/ in the checkout. It imports torch, numpy
 and strling_tpu_torch only, with `strling_tpu` and `jax` made unimportable
@@ -126,6 +147,10 @@ LOCUS = 20000
 #: the distributed extract's BAM: 250k pairs (500k reads) over 4 contigs
 DIST_BAM = os.path.join(CACHE, "bench4_250000.bam")
 VARIANTS = ("no_greedy", "no_modal", "winmin_only")
+#: phase 6: the CRAM kinds and their write_cram keywords
+CRAM_KINDS = {"v30": {}, "v31": {"v31": True},
+              "v31_arith": {"v31": True, "v31_arith": True},
+              "bz_lzma": {"bz_lzma": True}}
 #: how `ms` is taken (`ms_one_launch`, where given, is CUDA events around one
 #: launch, which also count the host's time to issue it)
 TIMING = ("device_ms: CUDA events around 10 launches queued behind a "
@@ -1094,15 +1119,181 @@ def phase_profile(work: str, p: dict, kind: str = "cuda") -> int:
     return launches
 
 
+# ------------------------------------------------------------------ phase 6
+
+
+CRAM_SCRIPT = GUARD + """
+import json
+from strling_tpu_torch.io import Bam, BamRecord
+from strling_tpu_torch.io.cramwrite import write_cram
+bam_p, fa, out = sys.argv[1:4]
+kinds = json.loads(sys.argv[4])
+bam = Bam(bam_p)
+recs = []
+for b in bam.batches():
+    for i in range(len(b)):
+        cig = [(int(c) >> 4, int(c) & 0xF) for c in b.cigar_of(i)]
+        recs.append(BamRecord(b.qname(i), int(b.flag[i]), int(b.tid[i]),
+                              int(b.pos[i]), int(b.mapq[i]), cig,
+                              int(b.mate_tid[i]), int(b.mate_pos[i]),
+                              int(b.isize[i]), b.seq_str(i)))
+targets = [(t.name, t.length) for t in bam.targets]
+for kind, kw in kinds.items():
+    write_cram(f"{out}/sample.{kind}.cram", bam.header_text, targets, recs,
+               fasta=fa, slice_size=500, **kw)
+print(len(recs))
+"""
+
+
+def start_crams(work: str, p: dict):
+    """Write the main path's sample as the four CRAM kinds in a background
+    process (the port's writer is pure Python)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", CRAM_SCRIPT, p["bam"], p["fa"], work,
+         json.dumps(CRAM_KINDS)], cwd=ROOT, stdout=subprocess.PIPE, text=True)
+
+
+def phase_cram(work: str, p: dict, gen, kind: str = "cuda") -> dict:
+    """The four CRAM kinds extracted on the card, native (CLI) and spec."""
+    say("== 6. CRAM input: the port's writer; extract on the card")
+    from strling_tpu_torch import cli
+    from strling_tpu_torch.core.extract import extract
+    from strling_tpu_torch.io import Bam, write_bin
+    from strling_tpu_torch.io import bam as engine
+
+    t0 = time.perf_counter()
+    out, _ = gen.communicate(timeout=600)
+    if gen.returncode != 0:
+        raise RuntimeError("writing the CRAMs failed")
+    say(f"waited {time.perf_counter() - t0:.1f}s for the four CRAMs "
+        f"({out.strip()} records each)")
+    crams = {k: os.path.join(work, f"sample.{k}.cram") for k in CRAM_KINDS}
+    _reset_counts()
+    for k, cram in crams.items():
+        binp = os.path.join(work, f"cram_{k}.bin")
+        t0 = time.perf_counter()
+        cli.main(["extract", "--device", kind, "-f", p["fa"], "-g",
+                  p["strbed"], cram, binp])
+        wall = time.perf_counter() - t0
+        if not _same_file(binp, p["binp"]):
+            raise RuntimeError(f"CRAM {k}: extract bin differs from the BAM's")
+        say(f"CRAM {k} ({os.path.getsize(cram)} bytes): extract in "
+            f"{wall:.3f}s, bin byte-identical to the BAM's")
+    native = _counts()
+    _reset_counts()
+    dev = torch.device(kind, 0) if kind == "cuda" else torch.device("cpu")
+    bam = Bam(crams["v31_arith"], fasta=p["fa"])
+    tb, frag, _ = extract(bam, p["fa"], p["strbed"], device=dev)
+    spec_bin = os.path.join(work, "cram_spec.bin")
+    write_bin(spec_bin, tb, frag, bam.header_text, 0.8, 40)
+    spec = _counts()
+    if not _same_file(spec_bin, os.path.join(work, f"spec_{dev.type}.bin")):
+        raise RuntimeError("CRAM v31_arith: spec extract bin differs from the "
+                           "BAM's")
+    lib = os.path.basename(engine._lib._name)
+    say(f"CRAM v31_arith: spec extract bin byte-identical to the BAM's; "
+        f"engine library {lib}")
+    say(f"CRAM launches: native extracts {dict(native)}, spec extract "
+        f"{dict(spec)}")
+    if kind == "cuda":
+        if "deflate_on_zlib-lzma_by_soname" not in lib:
+            raise RuntimeError(f"the engine is not the compat build: {lib}")
+        if sum(native.values()) <= 0 or sum(spec.values()) <= 0:
+            raise RuntimeError("a CRAM path launched no kernel")
+    return {"cram_extract": sum(native.values()),
+            "cram_spec_extract": _ascii_launches(spec, kind)}
+
+
+def phase_sweep(work: str, kind: str = "cuda") -> int:
+    say("== 6. accuracy sweep: sim_sweep random --n-samples 4 --flank 3000 "
+        "--depth 30, on the card and on the CPU")
+    from strling_tpu_torch.scripts import sim_sweep
+
+    outs, counts = {}, {}
+    for dev in (kind, "cpu"):
+        outs[dev] = os.path.join(work, f"sweep_{dev}")
+        _reset_counts()
+        t0 = time.perf_counter()
+        sim_sweep.main(["random", "--out", outs[dev], "--n-samples", "4",
+                        "--flank", "3000", "--depth", "30", "--device", dev])
+        counts[dev] = _counts()
+        say(f"sweep --device {dev}: {time.perf_counter() - t0:.2f}s, "
+            f"launches {dict(counts[dev])}")
+    for name in ("sweep_results.csv", "summary.md"):
+        if not _same_file(os.path.join(outs[kind], name),
+                          os.path.join(outs["cpu"], name)):
+            raise RuntimeError(f"sweep: {name} differs between --device "
+                               f"{kind} and cpu")
+    say("sweep: CSV and summary.md byte-identical between the card and the "
+        "CPU")
+    return _ascii_launches(counts[kind], kind)
+
+
+def phase_cohort_demo(work: str, kind: str = "cuda") -> int:
+    say(f"== 6. cohort demo: cohort_demo --n 4 --procs 2 --device {kind}")
+    from strling_tpu_torch.scripts import cohort_demo
+
+    out = os.path.join(work, "cohort_demo")
+    _reset_counts()
+    t0 = time.perf_counter()
+    cohort_demo.main(["--out", out, "--n", "4", "--procs", "2", "--device",
+                      kind])
+    counts = _counts()
+    if not _same_file(os.path.join(out, "joint_dp-bounds.txt"),
+                      os.path.join(out, "joint_sp-bounds.txt")):
+        raise RuntimeError("cohort demo: the ranks' bounds differ")
+    launches = sum(counts.values())
+    say(f"cohort demo: bounds byte-identical, {time.perf_counter() - t0:.2f}s,"
+        f" launches {dict(counts)}")
+    if kind == "cuda" and launches <= 0:
+        raise RuntimeError("the cohort demo's extracts launched no kernel")
+    return launches
+
+
+F10_SCRIPT = GUARD + """
+import json, os
+from strling_tpu_torch import cli
+a = json.loads(sys.argv[1])
+cli.main(["call", "--distributed", "--device", a["kind"], "--profile",
+          a["trace"], "-o", a["prefix"], a["bam"], a["bin"]])
+print(json.dumps({"rank": int(os.environ["RANK"])}))
+"""
+
+
+def phase_profile_ranks(work: str, p: dict, kind: str = "cuda"):
+    """call --distributed --profile on two ranks: a trace each (F10)."""
+    say("== 6. call --distributed --profile DIR on two ranks (F10)")
+    a = dict(kind=kind, trace=os.path.join(work, "trace_ranks"),
+             prefix=os.path.join(work, "profiled_ranks"), bam=p["bam"],
+             bin=p["binp"])
+    _run_ranks(F10_SCRIPT, a, 2)
+    names = sorted(os.listdir(a["trace"]))
+    want = ["call.rank0.pt.trace.json", "call.rank1.pt.trace.json"]
+    say(f"traces: {names} ({[os.path.getsize(os.path.join(a['trace'], n)) for n in names]} bytes)")
+    if names != want:
+        raise RuntimeError(f"two ranks wrote {names}, want {want}")
+    for suffix in ("-genotype.txt", "-bounds.txt", "-unplaced.txt"):
+        if not _same_file(a["prefix"] + suffix,
+                          os.path.join(work, "out") + suffix):
+            raise RuntimeError(f"profiled 2-rank call: {suffix} differs")
+    say("profiled 2-rank call: files byte-identical to the main path's call")
+
+
+#: background processes, stopped before the script ends
+BACKGROUND = []
+
+
 def main():
     phase_env()
     gen = start_dist_bam()
+    BACKGROUND.append(gen)
     try:
         _main(gen)
     finally:
-        if gen is not None and gen.poll() is None:
-            gen.kill()
-            gen.wait()
+        for proc in BACKGROUND:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def _main(gen):
@@ -1119,6 +1310,8 @@ def _main(gen):
     os.makedirs(work)
     launches = {}
     launches["repeat_scan"], paths = phase_main_path(work)
+    crams = start_crams(work, paths)
+    BACKGROUND.append(crams)
     launches["repeat_scan[sorted]"] = phase_sorted_path(work, paths)
     launches["repeat_scan[packed]"] = phase_packed_path(work, paths)
     stage_launches, stage_ms = phase_stage_tool()
@@ -1136,6 +1329,12 @@ def _main(gen):
         f"({len(cohort['bams'])} samples x {cohort['n_loci']} loci); "
         f"distributed extract: one process {ranks['single_s']:.3f}s, ranks "
         f"{ranks['ranks_extract_s']}")
+    t6 = time.perf_counter()
+    paths_launches.update(phase_cram(work, paths, crams))
+    paths_launches["sweep"] = phase_sweep(work)
+    paths_launches["cohort_demo"] = phase_cohort_demo(work)
+    phase_profile_ranks(work, paths)
+    say(f"phase 6 in {time.perf_counter() - t6:.1f}s")
     for v in VARIANTS:
         launches[f"repeat_scan[{v}]"] = stage_launches[v]
         checks.timings[(f"repeat_scan[{v}]", 32768)]["ms"] = stage_ms[("n8", v)]

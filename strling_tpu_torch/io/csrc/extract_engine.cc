@@ -205,6 +205,7 @@ struct Engine {
   int phase = 0;  // 0 main scan, 1 no-coor scan, 2 done
   int64_t nreads = 0;
   std::string err;
+  bool refused = false;  // a scan result's unit did not fit `repeat`
 
   // --- fragment-length histogram tee (single-stream mode only) ------------
   // Mirrors sio_frag_hist's record predicate over the engine's OWN phase-0
@@ -861,9 +862,20 @@ struct Engine {
                             : phase >= 2;
   }
 
-  static void unit_from_result(const KernelResult& kr, Tread* t) {
+  // A unit longer than the 6-byte `repeat` is refused, never written: the
+  // engine's error is set and sio_ex_feed returns -1. (The JAX package's
+  // packed word lets counts of 256 and more spill into the unit length, and
+  // a length of 7 would write one byte past `repeat`.)
+  void unit_from_result(const KernelResult& kr, Tread* t) {
     t->repeat_count = (uint8_t)kr.count;
     memset(t->repeat, 0, 6);
+    if (kr.len < 0 || kr.len > 6) {
+      if (!refused)
+        err = "scan result with a unit length of " + std::to_string(kr.len) +
+              " (at most 6)";
+      refused = true;
+      return;
+    }
     for (int i = 0; i < kr.len; i++)
       t->repeat[i] = DECODE[(kr.code >> (2 * (kr.len - 1 - i))) & 3];
   }
@@ -1125,7 +1137,7 @@ int sio_ex_feed(void* ve, const int32_t* unit_code, const int32_t* unit_len,
   for (int64_t i = 0; i < n_rows; i++)
     e->results[i] = {unit_code[i], unit_len[i], counts[i]};
   e->feed();
-  return 0;
+  return e->refused ? -1 : 0;
 }
 
 int sio_ex_done(void* ve) { return ((Engine*)ve)->drained() ? 1 : 0; }

@@ -55,6 +55,7 @@ def _bind(lib):
         P(np.int32), P(np.float64), C.c_int64, C.POINTER(C.c_int32),
     ]
     lib.sio_ex_feed.argtypes = [C.c_void_p, P(np.int32), P(np.int32), P(np.int32), C.c_int64]
+    lib.sio_ex_feed.restype = C.c_int
     lib.sio_ex_done.argtypes = [C.c_void_p]
     lib.sio_ex_nreads.restype = C.c_int64
     lib.sio_ex_nreads.argtypes = [C.c_void_p]
@@ -319,10 +320,18 @@ class NativeExtractor:
         return TreadBatch(data=data, qnames=qnames)
 
     def _feed(self, result):
-        # The bin stores repeat_count in 8 bits (the engine casts on store,
-        # extract_engine.cc:865, and asserts count < 256 on the main-read
-        # path, :973). The kernel's count is exact (a 256bp homopolymer
-        # counts 256), so reduce it here as the store would, and say so.
+        # The bin stores repeat_count in 8 bits (the engine casts on store
+        # and asserts count < 256 on the main-read path). The kernel's count
+        # is exact (a 256bp homopolymer counts 256), so reduce it here as
+        # the store would, and say so. The unit stays the kernel's, which is
+        # the oracle's (ops/oracle.get_repeat). The JAX package packs
+        # `cnt | ulen << 8 | code << 11`, so there a count of 256 or more
+        # spills into the unit length: for homopolymers of 512 bases and
+        # more, and long dimer runs, its bin holds `AAA`/`AAC` where this
+        # one holds `A`/`AC` (fault F9; the oracle decides). So bins equal
+        # the JAX package's where counts stay under 256, and for
+        # homopolymers of 256-511 bases. The spill is not copied, and the
+        # engine refuses a unit longer than 6 bases.
         if result is not None:
             code, ulen, cnt = result
             wide = int((cnt > 255).sum())
@@ -333,14 +342,16 @@ class NativeExtractor:
                 result = (code, ulen, cnt & 0xFF)
         empty = np.zeros(0, np.int32)
         if result is None:
-            self.lib.sio_ex_feed(self._e, empty, empty, empty, 0)
+            rc = self.lib.sio_ex_feed(self._e, empty, empty, empty, 0)
         else:
             code, ulen, cnt = result
-            self.lib.sio_ex_feed(
+            rc = self.lib.sio_ex_feed(
                 self._e, np.ascontiguousarray(code, np.int32),
                 np.ascontiguousarray(ulen, np.int32),
                 np.ascontiguousarray(cnt, np.int32), len(code),
             )
+        if rc < 0:
+            raise IOError(self.lib.sio_ex_error(self._e).decode())
 
     def run(self, devices: list[torch.device], depth: int = 8,
             pre_feed_hook=None, stats: dict | None = None,

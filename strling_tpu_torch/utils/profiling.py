@@ -18,10 +18,26 @@ import time
 import torch
 
 
+def trace_name(label: str) -> str:
+    """The trace file's name: `<label>.pt.trace.json` in a single process
+    (a world of one included), `<label>.rank<r>.pt.trace.json` when a group
+    of more than one rank is up or torchrun's RANK is set, so that ranks
+    sharing a directory keep a trace each."""
+    import torch.distributed as dist
+
+    if (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return f"{label}.rank{dist.get_rank()}.pt.trace.json"
+    if "RANK" in os.environ:
+        return f"{label}.rank{int(os.environ['RANK'])}.pt.trace.json"
+    return f"{label}.pt.trace.json"
+
+
 @contextlib.contextmanager
 def maybe_trace(trace_dir: str | None, label: str = "stage"):
     """Capture a torch.profiler trace of the enclosed block when a directory
-    is given (`DIR/<label>.pt.trace.json`); otherwise a zero-cost no-op."""
+    is given (`DIR/` + `trace_name(label)`, named when the block ends, so a
+    group started inside it counts); otherwise a zero-cost no-op."""
     if not trace_dir:
         yield
         return
@@ -38,8 +54,7 @@ def maybe_trace(trace_dir: str | None, label: str = "stage"):
         yield
     finally:
         prof.stop()
-        prof.export_chrome_trace(
-            os.path.join(trace_dir, f"{label}.pt.trace.json"))
+        prof.export_chrome_trace(os.path.join(trace_dir, trace_name(label)))
         print(
             f"[strling] {label}: {time.perf_counter() - t0:.2f}s; "
             f"profiler trace written to {trace_dir}",

@@ -156,3 +156,67 @@ def test_port_cli_runs_with_reference_and_jax_blocked(tmp_path):
         assert os.path.getsize(tmp_path / name) > 0, name
     assert "AGC" in (tmp_path / "ref.str").read_text()
     assert "chr1" in (tmp_path / "s1-bounds.txt").read_text()
+
+
+SCRIPTS = """
+import os, runpy, sys
+sys.modules["strling_tpu"] = None
+sys.modules["jax"] = None
+REF = [os.path.join({repo!r}, p) + os.sep for p in ("strling_tpu", "scripts")]
+touched = []
+
+def audit(event, args):
+    if event == "open" and isinstance(args[0], str):
+        if any(os.path.abspath(args[0]).startswith(r) for r in REF):
+            touched.append(args[0])
+
+sys.addaudithook(audit)
+import torch
+torch.set_num_threads(1)
+d = {work!r}
+sys.argv = ["sim_sweep", "random", "--out", os.path.join(d, "sweep"),
+            "--n-samples", "1", "--depth", "10", "--flank", "2000",
+            "--device", "cpu"]
+runpy.run_module("strling_tpu_torch.scripts.sim_sweep", run_name="__main__")
+from strling_tpu_torch.scripts import cohort_demo, gen_fqz_fixture
+cohort_demo.main(["--out", os.path.join(d, "cohort"), "--n", "2", "--procs",
+                  "2", "--device", "cpu"])
+gen_fqz_fixture.main()
+from strling_tpu_torch.io import Bam, BamRecord
+from strling_tpu_torch.io.cramwrite import write_cram
+recs = [BamRecord("r", 0, 0, 10, 60, "20M", -1, -1, 0, "CAG" * 6 + "CA")]
+write_cram(os.path.join(d, "t.cram"), "@SQ\\tSN:chr1\\tLN:100\\n",
+           [("chr1", 100)], recs, fasta=None)
+assert sum(len(b) for b in Bam(os.path.join(d, "t.cram")).batches()) == 1
+loaded = sorted(k for k, v in sys.modules.items() if v is not None and
+                k.split(".")[0] in ("strling_tpu", "jax", "jaxlib"))
+assert not loaded, loaded
+assert not touched, touched
+print("scripts ok")
+"""
+
+
+def test_port_scripts_run_with_reference_and_jax_blocked(tmp_path):
+    """The port's sim_sweep, cohort_demo (two Gloo ranks), gen_fqz_fixture
+    and CRAM writer run with the JAX package and JAX unimportable, and read
+    nothing of the JAX package or its scripts."""
+    script = SCRIPTS.format(repo=REPO, work=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "scripts ok" in out.stdout
+    assert "# native decoder agrees" in out.stdout
+    assert (tmp_path / "sweep" / "sweep_results.csv").exists()
+    assert (tmp_path / "cohort" / "joint_dp-bounds.txt").exists()
+
+
+def test_sanitize_script_builds_only_the_port():
+    """sanitize.sh compiles the port's engine and compat layer and imports
+    the port's CRAM writer: no path or module of the JAX package."""
+    with open(os.path.join(PORT, "scripts", "sanitize.sh")) as fh:
+        text = fh.read()
+    assert 'SRC=strling_tpu_torch/io/csrc' in text
+    assert "COMPAT=strling_tpu_torch/io/compat" in text
+    rest = text.replace("strling_tpu_torch", "")
+    assert "strling_tpu/" not in rest and "strling_tpu." not in rest
