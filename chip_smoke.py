@@ -63,7 +63,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      - the spec extract (`core.extract.extract`) of the main path's sample
        on the card: its bin byte-equal to the native extract's and to the
        spec extract's with --device cpu; the ASCII form must launch;
-     - distributed extract, 2 ranks sharing the card (Gloo), of a
+     - distributed extract, 2 ranks (sharing the card over Gloo on one
+       card, a card each over NCCL on two or more: the backend rule's), of a
        500k-read 150bp BAM over 4 contigs with 1% of its pairs split
        across two of them (a third of those with a CAG mate), generated
        into .smoke_cache/ in the background from the start: the bin
@@ -95,12 +96,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      - `sim_sweep random --n-samples 4 --flank 3000 --depth 30` on
        `--device cuda` and on `--device cpu`: CSVs and summary.md
        byte-identical; the ASCII form must launch;
-     - `cohort_demo --n 4 --procs 2 --device cuda`: two ranks sharing the
-       card (Gloo) give bounds byte-identical to one process's run_merge;
+     - `cohort_demo --n 4 --procs 2 --device cuda`: two ranks (Gloo on one
+       card) give bounds byte-identical to one process's run_merge;
        the extracts must launch;
      - `call --distributed --profile DIR` on two ranks (fault F10): one
        trace file a rank, and the files byte-identical to the main path's
-       single-process call.
+       single-process call;
+  7. the parallel layer at four ranks, on whatever cards the machine has,
+     the launch counts of each rank's path read in the rank (ranks are
+     fresh processes, started as `scripts/ranks.run_ranks` starts them:
+     `file://` store in the work directory, a timeout, the others stopped
+     when one fails), the set-up printed first:
+     - one card: four ranks share it over Gloo; four cards or more: four
+       ranks, a card each, over NCCL. Each rank runs the distributed extract
+       of phase 5's BAM (one contig a rank, on the rank's own device:
+       `run_extract_dist` without `device`), merge and call of the cohort
+       through the CLI, and `dryrun_multichip` at world 4 (the sharded step
+       on the (2, 2) data x locus mesh against a world of one, the exchange,
+       the O/E barrier, the round robin over the local cards, the golden
+       chain); the backend must be the rule's, the bin and the cohort's
+       files byte-identical to one process's, and every rank must launch;
+     - two cards or more: `extract --devices all` of the 500k-read BAM,
+       its bin byte-identical to the single-card bin, with launches on
+       every card (`kmer_cuda.launches_by_device`).
 
 The second-to-last line is a JSON object describing the kernel's forms, each
 entry naming its design as the launcher reported it for that form's launches
@@ -110,7 +128,7 @@ over the card's HBM rate and the integer operations, for the k that the
 selection state machine reads on these inputs, over its int32 rate); the
 detectors' entries (pairwise and sorted) add their clocked form's time and
 stage split on n8 rows; the repeat_scan entry adds the launches of the
-phase 5 and 6 paths (`launches_paths`). The last line is {"ok":
+phase 5, 6 and 7 paths (`launches_paths`). The last line is {"ok":
 true, "device": {...}}. Everything it
 generates goes under .smoke_cache/ in the checkout. It imports torch, numpy
 and strling_tpu_torch only, with `strling_tpu` and `jax` made unimportable
@@ -577,6 +595,7 @@ def _reset_counts():
 
     kmer_cuda.launches = 0
     kmer_cuda.launches_by.clear()
+    kmer_cuda.launches_by_device.clear()
 
 
 def _counts() -> Counter:
@@ -980,13 +999,17 @@ def _check_cohort_files(cohort: dict, a: dict, samples, label: str):
 
 def phase_two_ranks(work: str, p: dict, cohort: dict, gen,
                     kind: str = "cuda") -> dict:
-    """Two ranks sharing the card (Gloo): distributed extract of DIST_BAM
-    against one process's bin, merge and call of the cohort, and the
-    dryrun."""
-    say("== 5. two ranks on one card (Gloo): distributed extract, merge, "
-        "call, dryrun")
+    """Two ranks (sharing the card over Gloo on one card, else a card each
+    over NCCL): distributed extract of DIST_BAM against one process's bin,
+    merge and call of the cohort, and the dryrun."""
     from strling_tpu_torch.core.extract import extract_native
     from strling_tpu_torch.io import Bam, write_bin
+    from strling_tpu_torch.parallel.mesh import backend_rule
+
+    backend, why = backend_rule(kind, 2, torch.cuda.device_count()
+                                if kind == "cuda" else 0)
+    say(f"== 5. two ranks, {backend} ({why}): distributed extract, merge, "
+        "call, dryrun")
 
     if gen is not None:
         t0 = time.perf_counter()
@@ -1023,8 +1046,9 @@ def phase_two_ranks(work: str, p: dict, cohort: dict, gen,
             f"golden chain {o['dryrun']['golden_chain']})")
     say(f"2-rank extract bin byte-identical to one process's "
         f"({os.path.getsize(single)} bytes); ranks' run {wall:.1f}s")
-    if outs[0]["backend"] != "gloo":
-        raise RuntimeError(f"two ranks on one card must use Gloo: {outs[0]}")
+    if {o["backend"] for o in outs} != {backend}:
+        raise RuntimeError(f"two ranks ran on {outs[0]['backend']}, the rule "
+                           f"says {backend}")
     if kind == "cuda" and min(o["extract"]["launches"] for o in outs) <= 0:
         raise RuntimeError("a rank's extract launched no kernel")
     _check_cohort_files(cohort, a, a["samples"], "2-rank merge and call")
@@ -1279,6 +1303,140 @@ def phase_profile_ranks(work: str, p: dict, kind: str = "cuda"):
     say("profiled 2-rank call: files byte-identical to the main path's call")
 
 
+# ------------------------------------------------------------------ phase 7
+
+
+PHASE7_SCRIPT = GUARD + """
+import json, time
+import torch.distributed as dist
+from strling_tpu_torch import cli
+from strling_tpu_torch.ops import kmer_cuda
+from strling_tpu_torch.parallel.dryrun import dryrun_multichip
+from strling_tpu_torch.parallel.extract_dist import run_extract_dist
+from strling_tpu_torch.parallel.mesh import init_distributed
+rank, world, init = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+a = json.loads(sys.argv[4])
+dev = init_distributed(a["kind"], init_method="file://" + init, rank=rank,
+                       world_size=world)
+out = {"rank": rank, "backend": dist.get_backend(), "device": str(dev)}
+st = {}
+run_extract_dist(a["bam"], output_bin=a["bin"], stats=st)
+out["extract"] = dict(st, launches=kmer_cuda.launches)
+t0 = time.perf_counter()
+cli.main(["merge", "--distributed", "--device", a["kind"], "-f", a["fa"],
+          "-o", a["joint"], *a["bins"]])
+for s, (bam, binp) in a["samples"].items():
+    cli.main(["call", "--distributed", "--device", a["kind"], "-f", a["fa"],
+              "-b", a["bounds"], "-o", a["prefix"] + s, bam, binp])
+out["merge_call_s"] = time.perf_counter() - t0
+kmer_cuda.launches = 0
+out["dryrun"] = dryrun_multichip(dev)
+with open(a["result"] % rank, "w") as fh:
+    json.dump(out, fh)
+"""
+
+
+def phase_multicard(work: str, p: dict, cohort: dict) -> dict:
+    """Phase 7 on the cards present; returns its launches for the kernels
+    line."""
+    n = torch.cuda.device_count()
+    if n == 1:
+        setup = ("1 card: four ranks share it over Gloo (NCCL refuses two "
+                 "ranks on one GPU); --devices all needs two cards")
+    elif n < 4:
+        setup = (f"{n} cards: extract --devices all alone (four ranks need "
+                 "a card each, or one card that they share)")
+    else:
+        setup = (f"{n} cards: four ranks, a card each, over NCCL; extract "
+                 f"--devices all over the {n} cards")
+    say(f"== 7. the parallel layer on several ranks and cards; set-up: {setup}")
+    launches = {}
+    if n == 1 or n >= 4:
+        launches.update(_four_ranks(work, p, cohort, "nccl" if n >= 4
+                                    else "gloo"))
+    if n >= 2:
+        launches["devices_all_by_card"] = _devices_all(work, p, n)
+    return launches
+
+
+def _four_ranks(work: str, p: dict, cohort: dict, backend: str,
+                kind: str = "cuda") -> dict:
+    from strling_tpu_torch.scripts.ranks import run_ranks
+
+    world = 4
+    a = dict(_cohort_args(cohort, "ranks4"), kind=kind, bam=DIST_BAM,
+             bin=os.path.join(work, "dist_4ranks.bin"), fa=p["fa"],
+             result=os.path.join(work, "phase7_rank%d.json"))
+    t0 = time.perf_counter()
+    run_ranks(PHASE7_SCRIPT, world, os.path.join(work, "phase7_init"),
+              [json.dumps(a)], timeout=600)
+    wall = time.perf_counter() - t0
+    outs = []
+    for r in range(world):
+        with open(a["result"] % r) as fh:
+            outs.append(json.load(fh))
+    for o in outs:
+        e, d = o["extract"], o["dryrun"]
+        say(f"rank {o['rank']} ({o['backend']}, {o['device']}): tids "
+            f"{e['tids']}, extract wall {e['wall_s']:.3f}s (open "
+            f"{e['open_s']:.3f}, histogram {e['hist_s']:.3f}, scan "
+            f"{e['scan_s']:.3f}, gather {e['gather_s']:.3f}, write "
+            f"{e['write_s']:.3f}), spills {e['spills_local']} (of "
+            f"{e['spills_total']}), gathered {e['gathered_bytes']} bytes, "
+            f"launches {e['launches']}; merge and {len(a['samples'])} calls "
+            f"{o['merge_call_s']:.3f}s; dryrun {d['wall_s']:.3f}s, launches "
+            f"{d['launches']} by card {d['launches_by_device']}, round robin "
+            f"over {d['extract_devices']} device(s), golden chain "
+            f"{d['golden_chain']}")
+    say(f"four ranks' run {wall:.1f}s")
+    got = {o["backend"] for o in outs}
+    if got != {backend}:
+        raise RuntimeError(f"four ranks ran on {got}, the rule says {backend}")
+    if [o["dryrun"]["world"] for o in outs] != [world] * world:
+        raise RuntimeError("the dryrun did not run at world 4")
+    if outs[0]["dryrun"]["golden_chain"] != "byte-identical":
+        raise RuntimeError("the dryrun's golden chain was not checked")
+    if not _same_file(a["bin"], os.path.join(work, "dist_single.bin")):
+        raise RuntimeError("4-rank extract bin differs from one process's")
+    say("4-rank extract bin byte-identical to one process's")
+    _check_cohort_files(cohort, a, a["samples"], "4-rank merge and call")
+    extract = [o["extract"]["launches"] for o in outs]
+    dryrun = [o["dryrun"]["launches"] for o in outs]
+    if kind == "cuda" and (min(extract) <= 0 or min(dryrun) <= 0):
+        raise RuntimeError(f"a rank launched no kernel: extract {extract}, "
+                           f"dryrun {dryrun}")
+    devices = [o["device"] for o in outs]
+    if backend == "nccl" and devices != [f"cuda:{r}" for r in range(world)]:
+        raise RuntimeError(f"the ranks' cards: {devices}")
+    return {"dist_extract_4ranks": extract, "dryrun_4ranks": dryrun,
+            "dryrun_4ranks_by_card": [o["dryrun"]["launches_by_device"]
+                                      for o in outs]}
+
+
+def _devices_all(work: str, p: dict, n: int) -> dict:
+    """extract --devices all of the 500k-read BAM: the single-card bin, and
+    a launch on every card the batches reach (batch i on card i % n)."""
+    from strling_tpu_torch import cli
+    from strling_tpu_torch.ops import kmer_cuda
+
+    binp = os.path.join(work, "big_devices_all.bin")
+    _reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["extract", "--devices", "all", p["big"], binp])
+    wall = time.perf_counter() - t0
+    by_card = dict(kmer_cuda.launches_by_device)
+    say(f"extract --devices all ({n} cards): {wall:.3f}s, launches by card "
+        f"{by_card}")
+    if not _same_file(binp, p["big_bin"]):
+        raise RuntimeError("extract --devices all: bin differs from one card's")
+    want = set(range(min(n, sum(by_card.values()))))
+    if set(by_card) != want or min(by_card.values()) <= 0:
+        raise RuntimeError(f"--devices all launched on cards {by_card}, "
+                           f"want every one of {sorted(want)}")
+    say("extract --devices all: bin byte-identical to the single-card bin")
+    return {str(k): v for k, v in sorted(by_card.items())}
+
+
 #: background processes, stopped before the script ends
 BACKGROUND = []
 
@@ -1335,6 +1493,9 @@ def _main(gen):
     paths_launches["cohort_demo"] = phase_cohort_demo(work)
     phase_profile_ranks(work, paths)
     say(f"phase 6 in {time.perf_counter() - t6:.1f}s")
+    t7 = time.perf_counter()
+    paths_launches.update(phase_multicard(work, paths, cohort))
+    say(f"phase 7 in {time.perf_counter() - t7:.1f}s")
     for v in VARIANTS:
         launches[f"repeat_scan[{v}]"] = stage_launches[v]
         checks.timings[(f"repeat_scan[{v}]", 32768)]["ms"] = stage_ms[("n8", v)]

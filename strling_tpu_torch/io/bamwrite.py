@@ -10,8 +10,12 @@ from __future__ import annotations
 import struct
 import zlib
 
+import numpy as np
+
 SEQ_NT16 = "=ACMGRSVTWYHKDBN"
 NT16_CODE = {c: i for i, c in enumerate(SEQ_NT16)}
+#: byte -> its 4-bit code (15, N, for a byte outside SEQ_NT16)
+NT16_TABLE = bytes(NT16_CODE.get(chr(b), 15) for b in range(256))
 CIGAR_OPS = "MIDNSHP=X"
 
 
@@ -133,13 +137,18 @@ class BamRecord:
         rec += name
         for n, op in self.cigar:
             rec += struct.pack("<I", (n << 4) | op)
-        seq4 = bytearray((l_seq + 1) // 2)
-        for i, c in enumerate(self.seq):
-            code = NT16_CODE.get(c, 15)
-            seq4[i // 2] |= code << (4 if i % 2 == 0 else 0)
-        rec += bytes(seq4)
+        rec += pack_seq(self.seq)
         rec += b"\xff" * l_seq  # qual 0xff == missing
         return struct.pack("<i", len(rec)) + rec
+
+
+def pack_seq(seq: str) -> bytes:
+    """A read's bases, two to a byte (the first in the high nibble), each as
+    its index in SEQ_NT16 (15 for any other character: one byte a character
+    through latin-1, '?' for those outside it)."""
+    raw = seq.encode("latin-1", "replace").translate(NT16_TABLE)
+    codes = np.frombuffer(raw + b"\0" * (len(seq) % 2), np.uint8)
+    return ((codes[0::2] << 4) | codes[1::2]).tobytes()
 
 
 def write_bam(path: str, header_text: str, targets: list[tuple[str, int]],

@@ -66,6 +66,8 @@ launches_by: Counter = Counter()
 #: the same launches by form and the design of the kernel the launcher
 #: reported it launched: (layout, modal, variant, design) -> count
 launches_by_design: Counter = Counter()
+#: the same launches by card: CUDA device index -> count
+launches_by_device: Counter = Counter()
 _lock = threading.Lock()
 _lib = None
 #: nvcc's output of the build that produced the loaded library (ptxas -v)
@@ -265,4 +267,5 @@ def _launch(x, layout, lengths, te, tp, nbits, modal: str, variant: str):
         launches_by[(layout, modal, variant)] += 1
         launches_by_design[(layout, modal, variant,
                             DESIGNS[design.value])] += 1
+        launches_by_device[dev.index] += 1
     return code, ulen, cnt

@@ -15,6 +15,7 @@ import json
 import os
 import shutil
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -61,13 +62,18 @@ def sharded_step_on_rank(device, B: int = 64, L: int = 96, seed: int = 0):
 
 
 def _check_sharded_step(device):
+    """The step over the group's mesh against the kernel on the rank's rows
+    and against the same step at a world of one (the whole batch, no
+    mesh) on the rank's device."""
     from strling_tpu_torch.ops.kmer import codes_to_ascii
     from strling_tpu_torch.ops.kmer_cuda import repeat_scan
+    from strling_tpu_torch.parallel.extract_sharded import extract_step_local
 
     world, rank = dist.get_world_size(), dist.get_rank()
     B = 8 * max(8, world)
     unit, ulen, count, frag, uhist, n_str = sharded_step_on_rank(device, B)
-    bases, lengths, te, tp, isize, valid = example_inputs(B)
+    inputs = example_inputs(B)
+    bases, lengths, te, tp, isize, valid = inputs
     n = B // world
     rows = slice(rank * n, (rank + 1) * n)
     x, *named = (torch.from_numpy(np.ascontiguousarray(a[rows])).to(device)
@@ -80,6 +86,14 @@ def _check_sharded_step(device):
     assert int(frag.sum()) == int(valid.sum())
     assert int(frag[4095]) >= int((valid & (isize > 4095)).sum())
     assert int(uhist.sum()) == int(n_str.sum()) > 0
+    one = [t.cpu().numpy() for t in extract_step_local(
+        *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+          for a in inputs))]
+    for got, want in zip((unit, ulen, count), one):
+        assert np.array_equal(got, want[rows])
+    assert np.array_equal(frag, one[3]) and np.array_equal(uhist, one[4])
+    # n_str: one count a locus shard ("locus" dim), the batch's in all
+    assert int(n_str.sum()) == int(one[5].sum())
 
 
 def _check_exchange():
@@ -147,36 +161,56 @@ def _check_device_forms(device):
     assert np.isnan(a2[0]) and a2[2] > a2[1] > 0
 
 
-def _check_extract_devices(device, work):
-    """extract_native round-robin over every local device of the rank's
-    kind (two turns of the CPU on cpu) against one device."""
-    from strling_tpu_torch.core.extract import extract_native, scan_devices
+def check_round_robin(device, many, path: str):
+    """The engine's round robin of scan batches over the devices `many`, in
+    batches of 8 scan rows (a batch or more a device), on a BAM written to
+    `path`, against extract_native on `device` alone; on cards, every card
+    of `many` must launch the kernel."""
+    from strling_tpu_torch.core.extract import extract_native
     from strling_tpu_torch.io import Bam, BamRecord, write_bam
+    from strling_tpu_torch.io.extract_native import NativeExtractor
+    from strling_tpu_torch.ops import kmer_cuda
 
     rng = np.random.default_rng(5)
     alpha = np.array(list("ACGT"))
     recs = []
-    for i in range(80):
+    for i in range(160):
         pos = 1000 + i * 53
         s1 = "".join(alpha[rng.integers(0, 4, 100)])
-        s2 = ("CAG" * 34)[:100] if i % 7 == 0 else "".join(
+        s2 = ("CAG" * 34)[:100] if i % 2 == 0 else "".join(
             alpha[rng.integers(0, 4, 100)])
-        mq2 = 0 if i % 7 == 0 else 60
+        mq2 = 0 if i % 2 == 0 else 60
         recs.append(BamRecord(f"p{i}", 97, 0, pos, 60, "100M", 0, pos + 200,
                               300, s1))
         recs.append(BamRecord(f"p{i}", 145, 0, pos + 200, mq2, "100M", 0, pos,
                               -300, s2))
     recs.sort(key=lambda r: r.pos)
-    bp = os.path.join(work, f"devices_r{dist.get_rank()}.bam")
-    write_bam(bp, "@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chr1\tLN:100000\n",
+    write_bam(path, "@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chr1\tLN:100000\n",
               [("chr1", 100000)], recs)
-    many = (scan_devices("cuda", "all") if device.type == "cuda"
-            else [device, device])
-    tb1, _, _ = extract_native(Bam(bp), None, None, devices=[device])
-    tbn, _, _ = extract_native(Bam(bp), None, None, devices=many)
+    tb1, _, opts = extract_native(Bam(path), None, None, devices=[device])
+    before = kmer_cuda.launches_by_device.copy()
+    ne = NativeExtractor(Bam(path), 0.8, 40, opts.median_fragment_length,
+                         rows_per_batch=8)
+    tbn = ne.run(many)
+    if device.type == "cuda":
+        idle = [d for d in many
+                if kmer_cuda.launches_by_device[d.index] <= before[d.index]]
+        assert not idle, f"no scan batch launched on {idle}"
     t1 = [(t.tid, t.position, t.repeat, t.flag, t.qname) for t in tb1.to_treads()]
     tn = [(t.tid, t.position, t.repeat, t.flag, t.qname) for t in tbn.to_treads()]
     assert t1 == tn and len(t1) > 0
+
+
+def _check_extract_devices(device, work) -> int:
+    """check_round_robin over every local device of the rank's kind (two
+    turns of the CPU on cpu). Returns the number of devices."""
+    from strling_tpu_torch.core.extract import scan_devices
+
+    many = (scan_devices("cuda", "all") if device.type == "cuda"
+            else [device, device])
+    check_round_robin(device, many, os.path.join(
+        work, f"devices_r{dist.get_rank()}.bam"))
+    return len(many)
 
 
 def _golden_chain(device, work, golden):
@@ -247,13 +281,17 @@ def _golden_chain(device, work, golden):
 
 def dryrun_multichip(device, golden: str = GOLDEN) -> dict:
     """Run every check on this rank of the default group (all ranks call
-    it); raises on the first difference. Returns {world, rank, launches
-    (the rank's kernel launches, by form), golden_chain}."""
+    it); raises on the first difference. Returns {world, rank, backend,
+    wall_s, launches (the rank's kernel launches), launches_by_device (by
+    card index), extract_devices (the devices the round robin used),
+    golden_chain}."""
     from strling_tpu_torch.ops import kmer_cuda
     from strling_tpu_torch.parallel.mesh import broadcast_blob
 
+    t0 = time.perf_counter()
     device = torch.device(device)
     before = kmer_cuda.launches
+    by_device = kmer_cuda.launches_by_device.copy()
     _check_sharded_step(device)
     _check_exchange()
     _check_oe_barrier(device)
@@ -262,14 +300,19 @@ def dryrun_multichip(device, golden: str = GOLDEN) -> dict:
     work = broadcast_blob(tempfile.mkdtemp(prefix="strling_dryrun_").encode()
                           if rank == 0 else None).decode()
     try:
-        _check_extract_devices(device, work)
+        n_devices = _check_extract_devices(device, work)
         chain = _golden_chain(device, work, golden)
         dist.barrier()
     finally:
         if rank == 0:
             shutil.rmtree(work, ignore_errors=True)
+    by_device = kmer_cuda.launches_by_device - by_device
     return {"world": dist.get_world_size(), "rank": rank,
-            "launches": kmer_cuda.launches - before, "golden_chain": chain}
+            "backend": dist.get_backend(), "wall_s": time.perf_counter() - t0,
+            "launches": kmer_cuda.launches - before,
+            "launches_by_device": {str(k): v for k, v in
+                                   sorted(by_device.items())},
+            "extract_devices": n_devices, "golden_chain": chain}
 
 
 def main(argv=None):

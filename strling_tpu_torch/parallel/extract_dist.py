@@ -34,7 +34,7 @@ from strling_tpu_torch.core.tread import TREAD_DTYPE, Tread, TreadBatch
 from strling_tpu_torch.io.bam import Bam
 from strling_tpu_torch.io.extract_native import NativeExtractor, native_frag_hist
 from strling_tpu_torch.ops.encode import canonical_repeat
-from strling_tpu_torch.parallel.mesh import broadcast_blob, gather_blobs
+from strling_tpu_torch.parallel.mesh import broadcast_blob, gather_blobs, rank_device
 from strling_tpu_torch.utils import fraglen
 from strling_tpu_torch.utils.options import Options
 
@@ -145,7 +145,8 @@ def run_extract_dist(bam_path: str, fasta: str | None = None,
                      device: torch.device | None = None,
                      stats: dict | None = None):
     """Distributed extract_main. Every rank of the default group calls this
-    with the same arguments and its own `device` (default: the first card);
+    with the same arguments and its own `device` (default: the rank's own,
+    `parallel.mesh.rank_device()` of the kind the group was started with);
     the read stream is sharded by chromosome internally. Returns (TreadBatch,
     frag_dist, opts) of the COMBINED result on every rank; rank 0 writes the
     bin if output_bin is given.
@@ -153,17 +154,20 @@ def run_extract_dist(bam_path: str, fasta: str | None = None,
     Rank 0 computes the fragment-length histogram (and the longest read it
     saw) and broadcasts it; with a FASTA, rank 0 builds the genome index
     first, so that a missing `genome_repeats_path` is written once. `stats`,
-    when given, receives this rank's wall seconds, tread and spill counts
-    and the bytes the gathers brought in."""
+    when given, receives this rank's wall seconds and their split (`open_s`
+    the BAM's open, `hist_s` rank 0's histogram pass and its broadcast, which
+    the other ranks wait out, `index_s` the genome index, `scan_s` the
+    engine's run over the shard, `gather_s` the gathers, the pairing of the
+    spills and the sort, `write_s` the bin and the closing barrier), tread
+    and spill counts and the bytes the gathers brought in."""
     if device is None:
-        from strling_tpu_torch.core.extract import scan_devices
-
-        device = scan_devices()[0]
+        device = rank_device()
     t0 = time.perf_counter()
     rank = dist.get_rank()
     world = dist.get_world_size()
 
     bam = Bam(bam_path, fasta=fasta)
+    t_open = time.perf_counter()
     hist = None
     if rank == 0:
         frag, max_len = native_frag_hist(bam, return_max_len=True)
@@ -177,6 +181,7 @@ def run_extract_dist(bam_path: str, fasta: str | None = None,
         proportion_repeat=proportion_repeat,
         min_mapq=min_mapq,
     )
+    t_hist = time.perf_counter()
     genome_index = None
     if fasta:
         def build():
@@ -189,6 +194,7 @@ def run_extract_dist(bam_path: str, fasta: str | None = None,
         if rank != 0:
             genome_index = build()
 
+    t_index = time.perf_counter()
     my_tids = [t.tid for t in bam.targets if t.tid % world == rank]
     Lcap = max(32, ((max_read_len + 7) // 8) * 8) if max_read_len else None
     ne = NativeExtractor(
@@ -202,6 +208,7 @@ def run_extract_dist(bam_path: str, fasta: str | None = None,
     keys_local = _keys_struct(ne.emission_keys(0))
     sp_local = ne.spill()
     sp_keys = _keys_struct(ne.emission_keys(1))
+    t_scan = time.perf_counter()
 
     spill_blobs = gather_blobs(_pack_batch(sp_local, sp_keys))
     spills = [_unpack_batch(b) for b in spill_blobs]
@@ -224,6 +231,7 @@ def run_extract_dist(bam_path: str, fasta: str | None = None,
                         all_keys["ktid"], all_keys["seg"]))
     tb = TreadBatch(data=all_data[order],
                     qnames=[all_qnames[i] for i in order])
+    t_gather = time.perf_counter()
 
     if output_bin and rank == 0:
         from strling_tpu_torch.io.binfmt import write_bin
@@ -235,8 +243,11 @@ def run_extract_dist(bam_path: str, fasta: str | None = None,
                   file=sys.stderr)
     dist.barrier()  # the bin exists on every rank's return
     if stats is not None:
+        t_end = time.perf_counter()
         stats.update(
-            wall_s=time.perf_counter() - t0, tids=my_tids,
+            wall_s=t_end - t0, open_s=t_open - t0, hist_s=t_hist - t_open,
+            index_s=t_index - t_hist, scan_s=t_scan - t_index,
+            gather_s=t_gather - t_scan, write_s=t_end - t_gather, tids=my_tids,
             treads_local=len(tb_local), spills_local=len(sp_local),
             spills_total=sum(len(s) for s, _ in spills),
             gathered_bytes=sum(len(b) for b in spill_blobs + local_blobs),

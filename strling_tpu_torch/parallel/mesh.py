@@ -12,12 +12,13 @@ per-chromosome fan-out via bpipe, files as the only transport). Here:
   combined with all_gather.
 
 One process is one rank is one device (JAX's "local devices of a process"
-is 1 throughout). Backend rule, printed on stderr when the group starts:
-NCCL when the device is cuda and every rank on the host has a card of its
-own; Gloo when the device is cpu, or when ranks share a card (NCCL refuses
-two ranks on one GPU). Every collective's tensors live on the group's device
-(`group_device`: the rank's card under NCCL, the CPU under Gloo); the
-rank's own device (`rank_device`) is where its scans and sorts run.
+is 1 throughout). Backend rule (`backend_rule`), printed on stderr when the
+group starts: NCCL when the device is cuda and every rank on the host has a
+card of its own (four ranks on four cards: rank r on cuda:r); Gloo when the
+device is cpu, or when ranks share a card (NCCL refuses two ranks on one
+GPU). Every collective's tensors live on the group's device (`group_device`:
+the rank's card under NCCL, the CPU under Gloo); the rank's own device
+(`rank_device`) is where its scans and sorts run.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from __future__ import annotations
 import atexit
 import os
 import sys
+import weakref
 
 import numpy as np
 import torch
@@ -35,11 +37,50 @@ def _local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", dist.get_rank()))
 
 
-def rank_device(device: str) -> torch.device:
-    """This rank's device: cuda:LOCAL_RANK % device_count, or cpu."""
+#: (weak reference to the default group, device kind) of the group
+#: init_distributed started or was given. Weak: a group kept alive past
+#: destroy_process_group keeps its Gloo workers too, and a worker that drops
+#: the last reference to a tensor while the interpreter shuts down aborts
+#: the process ("terminate called without an active exception").
+_started: tuple | None = None
+
+
+def _started_kind() -> str | None:
+    """The device kind recorded for the current default group, if any."""
+    group = _started[0]() if _started else None
+    if group is None or group is not dist.group.WORLD:
+        return None
+    return _started[1]
+
+
+def rank_device(device: str | None = None) -> torch.device:
+    """This rank's device: cuda:LOCAL_RANK % device_count, or cpu. `device`
+    is "cuda" or "cpu"; None: the kind init_distributed was given for this
+    group, else the rank's card (a group started elsewhere runs on the card
+    unless the caller asks for the CPU)."""
+    if device is None:
+        device = _started_kind() or "cuda"
     if device == "cpu":
         return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device for this rank: pass device "
+                           "'cpu' (or start the group with init_distributed"
+                           "('cpu'))")
     return torch.device("cuda", _local_rank() % torch.cuda.device_count())
+
+
+def backend_rule(device: str, local_world: int,
+                 n_cards: int) -> tuple[str, str]:
+    """(backend, why) for a group of `local_world` ranks on this host with
+    `n_cards` cards: NCCL when the device is cuda and every rank has a card
+    of its own, else Gloo."""
+    if device == "cpu":
+        return "gloo", "device cpu"
+    if local_world <= n_cards:
+        return "nccl", (f"each of the {local_world} ranks on this host has "
+                        "its own card")
+    return "gloo", (f"{local_world} ranks share {n_cards} card(s): NCCL "
+                    "refuses two ranks on one GPU; collectives on the CPU")
 
 
 def group_device() -> torch.device:
@@ -61,12 +102,16 @@ def init_distributed(device: str = "cuda", init_method: str | None = None,
     is given). Without either the process runs as a world of one on an
     in-memory store, as the JAX package's --distributed does with one
     process."""
+    global _started
     if device not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(use --device cpu for a Gloo group on the CPU)")
     if dist.is_initialized():
+        # a group started elsewhere: its ranks' default device is `device`
+        if _started_kind() is None:
+            _started = (weakref.ref(dist.group.WORLD), device)
         return rank_device(device)
     env = os.environ
     from_env = "RANK" in env and "WORLD_SIZE" in env
@@ -78,25 +123,20 @@ def init_distributed(device: str = "cuda", init_method: str | None = None,
         init_method = "env://"
     local_rank = int(env.get("LOCAL_RANK", rank))
     local_world = int(env.get("LOCAL_WORLD_SIZE", world_size))
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    backend, why = backend_rule(device, local_world, n_cards)
     if device == "cuda":
-        n_cards = torch.cuda.device_count()
         dev = torch.device("cuda", local_rank % n_cards)
         torch.cuda.set_device(dev)
-        own_card = local_world <= n_cards
-        backend = "nccl" if own_card else "gloo"
-        why = (f"each of the {local_world} ranks on this host has its own "
-               f"card" if own_card else
-               f"{local_world} ranks share {n_cards} card(s): NCCL refuses "
-               "two ranks on one GPU; collectives on the CPU")
     else:
         dev = torch.device("cpu")
-        backend, why = "gloo", "device cpu"
     if init_method is None:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1)
     else:
         dist.init_process_group(backend, init_method=init_method, rank=rank,
                                 world_size=world_size)
+    _started = (weakref.ref(dist.group.WORLD), device)
     # a group left to the interpreter's exit can abort the process while its
     # threads are still joinable (and NCCL warns of leaked resources)
     atexit.register(_destroy)

@@ -14,7 +14,9 @@ RSS against the reference's slurm budget for the merge stage
 (120 GB / 48 h, pipelines/bpipe.config:16-18). Peak RSS is each process's
 own: the kernel's high-water mark (VmHWM) where /proc has it, else the
 largest VmRSS a sampling thread saw. getrusage's ru_maxrss, which the JAX
-script prints, can carry a rank's parent's peak across fork and exec.
+script prints, can carry a rank's parent's peak across fork and exec. Each
+rank also writes them, with its backend and exchange stats, to
+joint_dp-rank{N}.json (`exp_multicard` reads them).
 
 Usage: python -m strling_tpu_torch.scripts.cohort_demo --out /tmp/cohort [--n 100] [--procs 2] [--device cuda|cpu]
 """
@@ -37,12 +39,14 @@ from strling_tpu_torch.io.binfmt import write_bin
 from strling_tpu_torch.io.fasta import build_fai, write_fasta
 from strling_tpu_torch.scripts.ranks import run_ranks
 
-#: one rank: the port alone, a group from a file:// store
+#: one rank: the port alone, a group from a file:// store; writes its wall,
+#: peak RSS, backend and exchange stats to {out_prefix}-rank{pid}.json
 RANK = """
 import sys
 sys.modules["jax"] = None
 sys.modules["strling_tpu"] = None
-import time
+import json, time
+import torch.distributed as dist
 from strling_tpu_torch.parallel.merge_dist import run_merge_dist
 from strling_tpu_torch.parallel.mesh import init_distributed
 from strling_tpu_torch.scripts.cohort_demo import PeakRss
@@ -51,10 +55,14 @@ pid, n, init, device, out_prefix = sys.argv[1:6]
 bins = sys.argv[6:]
 init_distributed(device, init_method="file://" + init, rank=int(pid),
                  world_size=int(n))
+stats = {}
 t0 = time.perf_counter()
-run_merge_dist(bins, output_prefix=out_prefix)
+run_merge_dist(bins, output_prefix=out_prefix, stats=stats)
 dt = time.perf_counter() - t0
 print(f"[p{pid}] wall={dt:.1f}s peak_rss={rss.gb():.2f}GB", file=sys.stderr)
+with open(f"{out_prefix}-rank{pid}.json", "w") as fh:
+    json.dump(dict(stats, wall_s=dt, peak_rss_gb=rss.gb(),
+                   backend=dist.get_backend()), fh)
 """
 
 

@@ -1,17 +1,17 @@
-"""One process against two ranks of `call` on the same host (experiment tool).
+"""One process against N ranks of `call` on the same host (experiment tool).
 
-    python -m strling_tpu_torch.scripts.exp_call_dist [--loci 5000] [--device cuda|cpu]
+    python -m strling_tpu_torch.scripts.exp_call_dist [--loci 5000] [--ranks 2] [--device cuda|cpu]
 
 Builds bench.py's call workload (`_bench_call_inputs`: n novel CAG clusters
 25 kb apart, 20x coverage within 1,150 bp of each, the evidence treads
 written straight to the bin; cached under .smoke_cache/), times `run_call`
-(best of 2) and `run_call_dist` in two ranks started with torchrun's
-environment (on a host with one card they share it, over Gloo), timed from
-a barrier after the group starts (the slower rank, best of 2), checks that
-the two-rank files are byte-identical to the one-process files, and prints
-one JSON line: loci called, seconds and loci/s of each, and their ratio.
-The JAX package's 2-process call ran at 0.54x its one process on this
-workload (fault F4: every process redid the setup).
+(best of 2) and `run_call_dist` in `--ranks` ranks (`scripts/ranks.run_ranks`:
+a `file://` store; NCCL when each rank has a card of its own, else Gloo),
+timed from a barrier after the group starts (the slower rank, best of 2),
+checks that the ranks' files are byte-identical to the one-process files,
+and prints one JSON line: loci called, seconds and loci/s of each, and their
+ratio. The JAX package's 2-process call ran at 0.54x its one process on
+this workload (fault F4: every process redid the setup).
 """
 
 from __future__ import annotations
@@ -19,13 +19,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import socket
-import subprocess
-import sys
 import tempfile
 import time
 
 import numpy as np
+
+from strling_tpu_torch.scripts.ranks import run_ranks
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -33,18 +32,22 @@ CACHE = os.path.join(ROOT, ".smoke_cache")
 
 RANK = """
 import json, sys, time
+sys.modules["jax"] = None
+sys.modules["strling_tpu"] = None
 import torch.distributed as dist
 from strling_tpu_torch.parallel.call_dist import run_call_dist
 from strling_tpu_torch.parallel.mesh import init_distributed
-bam, binp, prefix, device = sys.argv[1:5]
-dev = init_distributed(device)
+rank, world, init, bam, binp, prefix, device, out = sys.argv[1:9]
+dev = init_distributed(device, init_method="file://" + init, rank=int(rank),
+                       world_size=int(world))
 secs = []
 for _ in range(2):
     dist.barrier()
     t0 = time.perf_counter()
     run_call_dist(bam, binp, output_prefix=prefix, device=dev)
     secs.append(time.perf_counter() - t0)
-print(json.dumps({"secs": secs, "backend": dist.get_backend()}))
+with open(out % int(rank), "w") as fh:
+    json.dump({"secs": secs, "backend": dist.get_backend()}, fh)
 """
 
 
@@ -108,27 +111,26 @@ def call_inputs(n_loci: int, depth: int = 20, gap: int = 25_000):
     return bam_path, bin_path
 
 
-def _two_ranks(bam, binp, prefix, device):
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    env = dict(os.environ, WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
-               MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK, bam, binp, prefix, device], cwd=ROOT,
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
-        text=True) for r in range(2)]
-    try:
-        outs = [p.communicate(timeout=1800)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(p.returncode for p in procs):
-        raise RuntimeError("a call rank failed")
-    res = [json.loads(o.strip().splitlines()[-1]) for o in outs]
-    return min(max(r["secs"][i] for r in res) for i in range(2)), res[0]["backend"]
+def call_ranks(bam, binp, prefix, device, n: int) -> tuple[list, str]:
+    """`run_call_dist` twice in `n` ranks; returns the slower rank's seconds
+    of each run and the backend."""
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "rank%d.json")
+        run_ranks(RANK, n, os.path.join(d, "init"),
+                  [bam, binp, prefix, device, out])
+        res = []
+        for r in range(n):
+            with open(out % r) as fh:
+                res.append(json.load(fh))
+    return ([max(r["secs"][i] for r in res) for i in range(2)],
+            res[0]["backend"])
+
+
+def same_call_files(a: str, b: str):
+    for sfx in ("-genotype.txt", "-bounds.txt", "-unplaced.txt"):
+        with open(a + sfx, "rb") as x, open(b + sfx, "rb") as y:
+            if x.read() != y.read():
+                raise RuntimeError(f"{b}{sfx} differs from {a}{sfx}")
 
 
 def main(argv=None) -> dict:
@@ -136,6 +138,7 @@ def main(argv=None) -> dict:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--loci", type=int, default=5000)
+    ap.add_argument("--ranks", type=int, default=2)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     a = ap.parse_args(argv)
     t0 = time.perf_counter()
@@ -147,19 +150,17 @@ def main(argv=None) -> dict:
             t0 = time.perf_counter()
             run_call(bam, binp, output_prefix=os.path.join(d, "one"))
             one.append(time.perf_counter() - t0)
-        two, backend = _two_ranks(bam, binp, os.path.join(d, "two"), a.device)
-        for sfx in ("-genotype.txt", "-bounds.txt", "-unplaced.txt"):
-            with open(os.path.join(d, "one" + sfx), "rb") as x, \
-                    open(os.path.join(d, "two" + sfx), "rb") as y:
-                if x.read() != y.read():
-                    raise RuntimeError(f"two-rank call differs on {sfx}")
+        secs, backend = call_ranks(bam, binp, os.path.join(d, "ranks"),
+                                   a.device, a.ranks)
+        same_call_files(os.path.join(d, "one"), os.path.join(d, "ranks"))
         with open(os.path.join(d, "one-genotype.txt")) as fh:
             n = len(fh.read().splitlines()) - 1
     rec = {"loci_called": n, "one_process_s": min(one),
-           "one_process_loci_per_s": n / min(one), "two_ranks_s": two,
-           "two_ranks_loci_per_s": n / two, "two_over_one": min(one) / two,
-           "backend": backend, "inputs_s": gen_s,
-           "timing": "host clock; one process best of 2; two ranks the "
+           "one_process_loci_per_s": n / min(one), "ranks": a.ranks,
+           "ranks_s": min(secs), "ranks_loci_per_s": n / min(secs),
+           "ranks_over_one": min(one) / min(secs), "backend": backend,
+           "inputs_s": gen_s,
+           "timing": "host clock; one process best of 2; the ranks the "
                      "slower rank from a barrier, best of 2",
            "outputs": "byte-identical"}
     print(json.dumps(rec), flush=True)

@@ -59,20 +59,19 @@ def bench_bam(path: str, n_pairs: int, seed: int = 7, n_chrom: int = 1):
 
     rng = np.random.default_rng(seed)
     L, G = 150, 50_000_000
-    alphabet = np.array(list("ACGT"))
     units = ["CAG", "A", "AT", "AAGGG", "ATTCT"]
     recs = []
     pos = np.sort(rng.integers(0, G - 2000, n_pairs))
     isizes = rng.integers(300, 500, n_pairs)
-    seqs = alphabet[rng.integers(0, 4, (n_pairs, 2, L))]
+    seqs = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n_pairs, 2, L))]
     C = G // n_chrom
     names = ["chrB"] if n_chrom == 1 else [f"chrB{t}" for t in range(n_chrom)]
     for i in range(n_pairs):
         t, p = divmod(int(pos[i]), C)
         p = min(p, C - 2000)
         isz = int(isizes[i])
-        s1 = "".join(seqs[i, 0])
-        s2 = "".join(seqs[i, 1])
+        s1 = seqs[i, 0].tobytes().decode()
+        s2 = seqs[i, 1].tobytes().decode()
         if i % 20 == 0:
             u = units[i % len(units)]
             s2 = (u * (L // len(u) + 1))[:L]

@@ -570,3 +570,72 @@ def test_oe_barrier_and_sharded_step_on_nccl(nccl_world_of_one):
     on_cpu = sharded_step_on_rank(torch.device("cpu"))
     for a, b in zip(on_card, on_cpu):
         assert np.array_equal(a, b)
+
+
+# ------------------------------------------------------ several cards
+
+
+def _cards(n: int) -> list:
+    """Every card present, or a skip when there are fewer than `n`."""
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
+        pytest.skip(f"needs {n} CUDA devices, {have} present")
+    return [torch.device("cuda", i) for i in range(have)]
+
+
+@pytest.mark.cuda
+def test_extract_devices_all_equals_one_card(tmp_path):
+    """Scan batches round robin over every card (`--devices all`) give the
+    treads of one card, with a launch on each card; each card keeps its own
+    kernel attributes and its own clocked-form stage counters."""
+    from strling_tpu_torch.ops import kmer_cuda
+    from strling_tpu_torch.parallel.dryrun import check_round_robin
+
+    cards = _cards(2)
+    check_round_robin(cards[0], cards, str(tmp_path / "rr.bam"))
+    _, bases, lengths, props = _reads(31, 600, 152, True)
+    for dev in cards:
+        kmer_cuda.stage_cycles(dev)
+    for dev in cards:
+        x, *named = _ascii_args(bases, lengths, props, dev)
+        got = kmer_cuda.repeat_scan_clocked(x, "ascii", *named)
+        _same(got, TK.repeat_codes_plain(x, "ascii", *named,
+                                         modal=TK.MODAL_IMPL))
+    for dev in cards:
+        assert min(kmer_cuda.stage_cycles(dev).values()) > 0, dev
+
+
+RANK_NCCL = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["strling_tpu"] = None
+from strling_tpu_torch.parallel.dryrun import dryrun_multichip
+from strling_tpu_torch.parallel.mesh import init_distributed
+rank, world, init, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+dev = init_distributed("cuda", init_method="file://" + init, rank=rank,
+                       world_size=world)
+with open(out % rank, "w") as fh:
+    json.dump(dict(dryrun_multichip(dev), device=str(dev)), fh)
+"""
+
+
+@pytest.mark.cuda
+def test_four_rank_nccl_dryrun(tmp_path):
+    """dryrun_multichip at world 4, a card a rank: NCCL, the (2, 2) mesh,
+    the round robin over every card in every rank, the golden chain."""
+    import json
+
+    from strling_tpu_torch.scripts.ranks import run_ranks
+
+    cards = _cards(4)
+    out = str(tmp_path / "rank%d.json")
+    run_ranks(RANK_NCCL, 4, str(tmp_path / "init"), [out], timeout=600)
+    res = []
+    for r in range(4):
+        with open(out % r) as fh:
+            res.append(json.load(fh))
+    assert [o["device"] for o in res] == [f"cuda:{r}" for r in range(4)]
+    assert all(o["backend"] == "nccl" and o["world"] == 4 for o in res)
+    assert all(o["extract_devices"] == len(cards) and o["launches"] > 0
+               for o in res)
+    assert res[0]["golden_chain"] == "byte-identical"
