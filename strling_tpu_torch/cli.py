@@ -40,7 +40,7 @@ def _extract(argv):
     p.add_argument("-p", "--proportion-repeat", type=float, default=0.8, help="proportion of read that is repetitive to be considered as STR")
     p.add_argument("-q", "--min-mapq", type=int, default=40, help="minimum mapping quality (does not apply to STR reads)")
     p.add_argument("-v", "--verbose", action="store_true")
-    p.add_argument("--profile", default="", help="write a torch.profiler trace of extract to this directory")
+    p.add_argument("--profile", default="", help="write a torch.profiler trace of extract to this directory; it shows the engine's producer and inflate threads beside the card's stream")
     _add_device(p)
     p.add_argument("--devices", default="", help="with --device cuda: 'all' or a count of local GPUs to round-robin scan batches over (output is byte-identical)")
     p.add_argument("--distributed", action="store_true",

@@ -160,6 +160,19 @@ struct KernelResult {
   int32_t code, len, count;
 };
 
+// The heap a string owns: its buffer at capacity + 1 when the text does not
+// fit the string's in-object buffer, else nothing (malloc's rounding and
+// chunk headers are not counted).
+static int64_t str_heap(const std::string& s) {
+  const char* d = s.data();
+  const char* o = (const char*)&s;
+  return d >= o && d < o + sizeof(s) ? 0 : (int64_t)s.capacity() + 1;
+}
+
+// a std::unordered_map node beyond its key and value (libstdc++): the next
+// pointer and, for std::string keys, the cached hash code
+constexpr int64_t MAP_NODE_EXTRA = sizeof(void*) + sizeof(size_t);
+
 struct Engine {
   Reader* src = nullptr;
   bool begun = false;
@@ -261,6 +274,15 @@ struct Engine {
     std::vector<double> ascii_prop;
     int64_t rows = 0, n_records = 0, rowW = 0;
     int fb = 0;
+    int64_t pend_heap = 0;  // the qnames' heap of `pend`
+    int64_t bytes = 0;      // buffer_bytes() as counted in prod_bytes
+    int64_t buffer_bytes() const {
+      return (int64_t)(pend.capacity() * sizeof(Pending) +
+                       payload.capacity() + ascii_bases.capacity() +
+                       ascii_len.capacity() * sizeof(int32_t) +
+                       ascii_prop.capacity() * sizeof(double)) +
+             pend_heap;
+    }
   };
   std::thread producer;
   std::mutex mu;
@@ -273,6 +295,64 @@ struct Engine {
   std::string perr;
   int64_t prod_max_records = 0, prod_rows_cap = 0;
   static constexpr size_t MAX_READY = 3;
+
+  // --- counters (sio_ex_counters) ------------------------------------------
+  // The reader's and its inflate pool's live in `io`. The main thread's are
+  // its own: the time it waits on the producer in pop_fused, the time in
+  // feed, and the peak of held_bytes() sampled at every pop and feed. The
+  // producer adds its wait for room in the ready queue once a batch.
+  std::shared_ptr<sio::IoCounters> io = std::make_shared<sio::IoCounters>();
+  int64_t pop_wait_ns = 0, feed_ns = 0, held_bytes_peak = 0;
+  std::atomic<int64_t> space_wait_ns{0};
+  // held_bytes()'s parts, kept as they change
+  std::deque<int64_t> queue_bytes;  // each queued batch's, as enqueued
+  int64_t queued_bytes = 0;
+  int64_t pending_heap = 0;  // next(): the qnames' heap of the batch built
+  int64_t tbl_key_heap = 0, out_heap = 0, spill_heap = 0;
+  std::atomic<int64_t> prod_bytes{0};     // ready_q + pool, changed under mu
+  std::atomic<int64_t> scratch_bytes{0};  // the producer's row buffers
+
+  // The engine's accounted bytes:
+  //  - queued Pending batches: capacity x sizeof(Pending) + the qnames' heap;
+  //  - the mate table: entries x (key + Tread + MAP_NODE_EXTRA), the bucket
+  //    array, and the keys' heap;
+  //  - Produced batches in the ready queue and the pool: their buffers'
+  //    capacities, with the Pending batch a ready one carries;
+  //  - out and spill: capacity x sizeof(Tread) + the qnames' heap;
+  //  - the producer's row buffers, and the blocks BgzfMT holds inflated
+  //    ahead or inflating.
+  // Not counted: the batch the producer is building, the reader's own
+  // buffers, and what Python holds.
+  int64_t held_bytes() const {
+    const int64_t node =
+        sizeof(std::pair<const std::string, Tread>) + MAP_NODE_EXTRA;
+    return queued_bytes + (int64_t)tbl.size() * node +
+           (int64_t)(tbl.bucket_count() * sizeof(void*)) + tbl_key_heap +
+           (int64_t)(out.capacity() * sizeof(Tread)) + out_heap +
+           (int64_t)(spill.capacity() * sizeof(Tread)) + spill_heap +
+           prod_bytes.load(std::memory_order_relaxed) +
+           scratch_bytes.load(std::memory_order_relaxed) +
+           io->ahead_bytes.load(std::memory_order_relaxed);
+  }
+
+  void sample_held() {
+    held_bytes_peak = std::max(held_bytes_peak, held_bytes());
+  }
+
+  // queue a batch for feed(), with its bytes
+  void enqueue(std::vector<Pending>&& batch, int64_t heap) {
+    const int64_t bytes =
+        (int64_t)(batch.capacity() * sizeof(Pending)) + heap;
+    queue.push_back(std::move(batch));
+    queue_bytes.push_back(bytes);
+    queued_bytes += bytes;
+  }
+
+  // append a tread to out or spill, counting the heap its qname owns
+  void emit(std::vector<Tread>& v, Tread&& t) {
+    v.push_back(std::move(t));
+    (&v == &out ? out_heap : spill_heap) += str_heap(v.back().qname);
+  }
 
   ~Engine() {
     stop_producer();  // join the producer FIRST: it uses exact_scratch
@@ -479,6 +559,7 @@ struct Engine {
                int32_t* lengths, double* props, int64_t rows_cap,
                std::vector<Pending>* out) {
     pending.clear();
+    pending_heap = 0;
     int64_t rows = 0;
     std::string seq;
     BamRec r;
@@ -660,6 +741,7 @@ struct Engine {
           }
         }
       }
+      pending_heap += str_heap(p.qname);
       pending.push_back(std::move(p));
     }
     *n_records = (int64_t)pending.size();
@@ -681,6 +763,11 @@ struct Engine {
     p->pend.clear();
     int64_t rows = next(prod_max_records, &p->n_records, row_bases.data(),
                         row_len.data(), row_prop.data(), rows_cap, &p->pend);
+    p->pend_heap = p->pend.empty() ? 0 : pending_heap;
+    scratch_bytes.store(
+        (int64_t)(row_bases.capacity() + row_len.capacity() * sizeof(int32_t) +
+                  row_prop.capacity() * sizeof(double)),
+        std::memory_order_relaxed);
     if (rows < 0) {
       perr = src->err.empty() ? "read error" : src->err;
       return false;
@@ -771,28 +858,44 @@ struct Engine {
     }
   }
 
+  // One `produce` span a batch while tracing: its number (the order the
+  // main thread pops it in) and the ns it waited on blocks.
   void producer_loop() {
-    for (;;) {
+    sio::SpanBuf* sb = io->span_buf(sio::SPAN_PRODUCE);
+    for (int64_t batch = 0;; batch++) {
       std::unique_ptr<Produced> p;
       {
+        const int64_t w0 = sio::now_ns();
         std::unique_lock<std::mutex> lk(mu);
         cv_space.wait(lk, [&] {
           return quitting || ready_q.size() < MAX_READY;
         });
+        space_wait_ns.fetch_add(sio::now_ns() - w0, std::memory_order_relaxed);
         if (quitting) return;
         if (!pool.empty()) {
           p = std::move(pool.back());
           pool.pop_back();
+          prod_bytes.fetch_sub(p->bytes, std::memory_order_relaxed);
         }
       }
       if (!p) p = std::make_unique<Produced>();
+      const int64_t t0 = sio::now_ns();
+      const int64_t bw0 = io->block_wait_ns.load(std::memory_order_relaxed);
       bool ok = produce(p.get());
+      if (sb)
+        io->add_span(sb, t0, sio::now_ns(), batch,
+                     io->block_wait_ns.load(std::memory_order_relaxed) - bw0);
       bool at_end = ok && p->n_records == 0 && phase >= 2;
+      // the pass's threads are all started: later reads of the handle
+      // keep no spans
+      if (!ok || at_end) io->tracing.store(false, std::memory_order_relaxed);
       {
         std::lock_guard<std::mutex> lk(mu);
         if (!ok) {
           producer_done = true;  // perr set; surfaced by next pop
         } else {
+          p->bytes = p->buffer_bytes();
+          prod_bytes.fetch_add(p->bytes, std::memory_order_relaxed);
           ready_q.push_back(std::move(p));
           if (at_end) producer_done = true;
         }
@@ -816,11 +919,13 @@ struct Engine {
     }
     std::unique_ptr<Produced> p;
     {
+      const int64_t w0 = sio::now_ns();
       std::unique_lock<std::mutex> lk(mu);
       cv_ready.wait(lk, [&] {
         return !ready_q.empty() || (producer_done && !perr.empty()) ||
                (producer_done && ready_q.empty());
       });
+      pop_wait_ns += sio::now_ns() - w0;
       if (ready_q.empty()) {
         if (!perr.empty()) {
           err = perr;
@@ -832,6 +937,7 @@ struct Engine {
       }
       p = std::move(ready_q.front());
       ready_q.pop_front();
+      prod_bytes.fetch_sub(p->bytes, std::memory_order_relaxed);
     }
     cv_space.notify_all();
     *n_records = p->n_records;
@@ -848,11 +954,17 @@ struct Engine {
         memcpy(payload, p->payload.data(), (size_t)rows * p->rowW);
       }
     }
-    if (!p->pend.empty()) queue.push_back(std::move(p->pend));
+    if (!p->pend.empty()) enqueue(std::move(p->pend), p->pend_heap);
+    p->pend_heap = 0;
     {
       std::lock_guard<std::mutex> lk(mu);
-      if (pool.size() < MAX_READY + 1) pool.push_back(std::move(p));
+      if (pool.size() < MAX_READY + 1) {
+        p->bytes = p->buffer_bytes();
+        prod_bytes.fetch_add(p->bytes, std::memory_order_relaxed);
+        pool.push_back(std::move(p));
+      }
     }
+    sample_held();
     return rows;
   }
 
@@ -945,7 +1057,7 @@ struct Engine {
       t.krank = p.rank;
       t.ksub = s.left ? 0 : 1;
       if (t.p_repeat() < 0.9) continue;  // extract.nim:131
-      out.push_back(std::move(t));
+      emit(out, std::move(t));
     }
   }
 
@@ -955,8 +1067,11 @@ struct Engine {
       results.clear();
       return;
     }
+    sample_held();
     std::vector<Pending> batch = std::move(queue.front());
     queue.pop_front();
+    const int64_t batch_bytes = queue_bytes.front();
+    queue_bytes.pop_front();
     // non-const: qnames are MOVED out of the batch below (a const ref
     // would silently bind std::move to the copy constructor)
     for (Pending& p : batch) {
@@ -1009,10 +1124,11 @@ struct Engine {
               (p.mate_tid >= (int32_t)owned.size() || !owned[p.mate_tid])) {
             add_soft(p, /*first=*/false, tr.repeat);
             tr.qname = std::move(p.qname);
-            spill.push_back(std::move(tr));
+            emit(spill, std::move(tr));
           }
           continue;
         }
+        tbl_key_heap -= str_heap(it->first);
         auto nh = tbl.extract(it);
         Tread mate = std::move(nh.mapped());
         mate.qname = std::move(nh.key());
@@ -1034,15 +1150,15 @@ struct Engine {
           mate.tid = -1;
           tr.ksub = 2;
           mate.ksub = 3;
-          out.push_back(std::move(tr));
-          out.push_back(std::move(mate));
+          emit(out, std::move(tr));
+          emit(out, std::move(mate));
           continue;
         }
         uint32_t mp = mate.position;
         mate.ksub = 2;
         tr.ksub = 3;
-        if (adjust_by(mate, tr, tr.position)) out.push_back(mate);
-        if (adjust_by(tr, mate, mp)) out.push_back(tr);
+        if (adjust_by(mate, tr, tr.position)) emit(out, Tread(mate));
+        if (adjust_by(tr, mate, mp)) emit(out, Tread(tr));
       } else {
         add_soft(p, /*first=*/true, tr.repeat);
         if (sharded && p.mate_tid >= 0 &&
@@ -1050,7 +1166,7 @@ struct Engine {
           // mate is in another shard: it can never arrive in this stream —
           // spill for the cross-shard pairing pass instead of caching
           tr.qname = std::move(p.qname);
-          spill.push_back(std::move(tr));
+          emit(spill, std::move(tr));
           continue;
         }
         // the table key carries the qname; the cached Tread's own qname
@@ -1061,10 +1177,14 @@ struct Engine {
                   "[strling] warning. bad read (this happens with bwa-kit "
                   "alignments):%s already in table\n",
                   ins.first->first.c_str());
+          tbl_key_heap -= str_heap(ins.first->first);
           tbl.erase(ins.first);
+        } else {
+          tbl_key_heap += str_heap(ins.first->first);
         }
       }
     }
+    queued_bytes -= batch_bytes;
     results.clear();
   }
 };
@@ -1082,6 +1202,7 @@ void* sio_ex_create(void* bam_handle, double proportion_repeat, int min_mapq,
   e->min_mapq = min_mapq;
   e->median_fragment_length = median_fragment_length;
   e->Lmax = Lmax;
+  h->rd->set_counters(e->io);
   int n = (int)h->rd->ref_names().size();
   e->gi_starts.resize(n);
   e->gi_pmax.resize(n);
@@ -1109,7 +1230,7 @@ int64_t sio_ex_next(void* ve, int64_t max_records, int64_t* n_records,
   std::vector<Pending> tmp;
   int64_t rows = e->next(max_records, n_records, bases, lengths, props,
                          rows_cap, &tmp);
-  if (!tmp.empty()) e->queue.push_back(std::move(tmp));
+  if (!tmp.empty()) e->enqueue(std::move(tmp), e->pending_heap);
   return rows;
 }
 
@@ -1133,11 +1254,74 @@ int64_t sio_ex_next_fused(void* ve, int64_t max_records, int64_t* n_records,
 int sio_ex_feed(void* ve, const int32_t* unit_code, const int32_t* unit_len,
                 const int32_t* counts, int64_t n_rows) {
   Engine* e = (Engine*)ve;
+  const int64_t t0 = sio::now_ns();
   e->results.resize(n_rows);
   for (int64_t i = 0; i < n_rows; i++)
     e->results[i] = {unit_code[i], unit_len[i], counts[i]};
   e->feed();
+  e->feed_ns += sio::now_ns() - t0;
   return e->refused ? -1 : 0;
+}
+
+// The engine's counters, in the order io/extract_native.ENGINE_COUNTERS
+// names them; copies at most n and returns how many there are. Sums and
+// peaks since sio_ex_create (see Engine and sio::IoCounters).
+int64_t sio_ex_counters(void* ve, int64_t* out, int64_t n) {
+  Engine* e = (Engine*)ve;
+  const sio::IoCounters& io = *e->io;
+  auto get = [](const std::atomic<int64_t>& a) {
+    return a.load(std::memory_order_relaxed);
+  };
+  int64_t n_bufs;
+  {
+    std::lock_guard<std::mutex> lk(e->io->mu);
+    n_bufs = (int64_t)e->io->bufs.size();
+  }
+  const int64_t v[] = {get(io.inflate_ns), get(io.inflate_out_bytes),
+                       get(io.inflate_workers), get(io.block_wait_ns),
+                       get(e->space_wait_ns), e->pop_wait_ns, e->feed_ns,
+                       e->held_bytes_peak, n_bufs, get(io.dropped)};
+  const int64_t count = sizeof(v) / sizeof(v[0]);
+  for (int64_t i = 0; i < std::min(n, count); i++) out[i] = v[i];
+  return count;
+}
+
+// sizeof(Pending): what a held record costs the engine beyond its qname
+int64_t sio_ex_pending_bytes() { return (int64_t)sizeof(Pending); }
+
+// Keep span events for this engine's pass: the producer's batches and the
+// inflate workers' busy stretches. Must be called before the first batch;
+// -1 after it.
+int sio_ex_set_trace(void* ve, int on) {
+  Engine* e = (Engine*)ve;
+  if (e->producer_started) return -1;
+  e->io->tracing.store(on != 0, std::memory_order_relaxed);
+  return 0;
+}
+
+// Copy out the span events kept so far, six int64 a row: kind (SpanKind),
+// thread id, start and end ns on the steady clock, and the kind's two
+// numbers. Writes at most `cap` rows and returns how many there are. Call
+// it once the pass has drained, when no thread writes any more.
+int64_t sio_ex_trace_events(void* ve, int64_t* out, int64_t cap) {
+  Engine* e = (Engine*)ve;
+  std::lock_guard<std::mutex> lk(e->io->mu);
+  int64_t row = 0;
+  for (const auto& b : e->io->bufs) {
+    const int64_t n = b->n.load(std::memory_order_acquire);
+    for (int64_t i = 0; i < n; i++, row++) {
+      if (row >= cap) continue;
+      const sio::SpanEvent& ev = b->ev[i];
+      int64_t* r = out + 6 * row;
+      r[0] = b->kind;
+      r[1] = b->tid;
+      r[2] = ev.t0.load(std::memory_order_relaxed);
+      r[3] = ev.t1.load(std::memory_order_relaxed);
+      r[4] = ev.a.load(std::memory_order_relaxed);
+      r[5] = ev.b.load(std::memory_order_relaxed);
+    }
+  }
+  return row;
 }
 
 int sio_ex_done(void* ve) { return ((Engine*)ve)->drained() ? 1 : 0; }

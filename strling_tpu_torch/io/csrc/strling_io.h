@@ -13,6 +13,8 @@
 //
 // Thread-safety: one handle per thread; no shared mutable state.
 
+#include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -26,6 +28,9 @@
 #include <vector>
 #include <algorithm>
 
+#include <sys/syscall.h>
+#include <unistd.h>
+
 #include <libdeflate.h>
 
 namespace sio {
@@ -33,6 +38,105 @@ namespace sio {
 // ---------------------------------------------------------------- BGZF reader
 
 constexpr int BGZF_MAX_BLOCK = 1 << 16;
+
+// ------------------------------------------------------ counters and spans
+//
+// What the threads that read for an extract engine report (the engine reads
+// them out through sio_ex_counters). Each counter is a sum or a gauge, added
+// with relaxed atomics once a block; times are std::chrono::steady_clock,
+// which is CLOCK_MONOTONIC on Linux, the clock of Python's perf_counter.
+// The engine owns them; its reader and the reader's inflate pool hold a
+// shared reference, so whichever of them goes last frees them.
+//
+// Span events are kept only while `tracing` is on: then each thread that
+// works for the engine gets a buffer that it alone writes, and the engine
+// copies them out once its pass has drained.
+
+inline int64_t now_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+// (utils/profiling.ENGINE_SPANS names them in the trace)
+enum SpanKind { SPAN_PRODUCE = 0, SPAN_INFLATE = 1 };
+
+// [t0, t1) on the steady clock and two numbers of what it covered: a
+// produced batch's number and the ns it waited on blocks; an inflate
+// stretch's blocks and their inflated bytes. Atomic because an inflate
+// worker widens its last stretch in place.
+struct SpanEvent {
+  std::atomic<int64_t> t0, t1, a, b;
+};
+
+struct SpanBuf {
+  static constexpr int64_t CAP = 1 << 16;  // events kept; later ones drop
+  int kind = 0;
+  int64_t tid = 0;  // the writing thread's id (gettid)
+  std::atomic<int64_t> n{0};
+  std::unique_ptr<SpanEvent[]> ev{new SpanEvent[CAP]};
+};
+
+// inflate stretches closer than this merge into one span
+constexpr int64_t SPAN_MERGE_NS = 50000;
+
+struct IoCounters {
+  std::atomic<int64_t> inflate_ns{0};         // inside libdeflate
+  std::atomic<int64_t> inflate_out_bytes{0};  // what it produced
+  std::atomic<int64_t> inflate_workers{0};    // the largest pool that ran
+  // the reading thread blocked on a block the pool has not inflated yet,
+  // or inflating one itself off the pool (the synchronous path)
+  std::atomic<int64_t> block_wait_ns{0};
+  std::atomic<int64_t> ahead_bytes{0};  // blocks the pool holds (a gauge)
+  std::atomic<int64_t> dropped{0};      // span events lost to full buffers
+  // on for one engine pass; threads that start while it is on keep spans
+  std::atomic<bool> tracing{false};
+  std::mutex mu;         // guards bufs
+  std::vector<std::unique_ptr<SpanBuf>> bufs;
+
+  // a span buffer for the calling thread; nullptr while tracing is off
+  SpanBuf* span_buf(int kind) {
+    if (!tracing.load(std::memory_order_relaxed)) return nullptr;
+    auto b = std::make_unique<SpanBuf>();
+    b->kind = kind;
+    b->tid = (int64_t)syscall(SYS_gettid);
+    std::lock_guard<std::mutex> lk(mu);
+    bufs.push_back(std::move(b));
+    return bufs.back().get();
+  }
+
+  void add_span(SpanBuf* sb, int64_t t0, int64_t t1, int64_t a, int64_t b) {
+    const int64_t i = sb->n.load(std::memory_order_relaxed);
+    if (i == SpanBuf::CAP) {
+      dropped.fetch_add(1, std::memory_order_relaxed);
+      return;
+    }
+    SpanEvent& e = sb->ev[i];
+    e.t0.store(t0, std::memory_order_relaxed);
+    e.t1.store(t1, std::memory_order_relaxed);
+    e.a.store(a, std::memory_order_relaxed);
+    e.b.store(b, std::memory_order_relaxed);
+    sb->n.store(i + 1, std::memory_order_release);
+  }
+
+  // one inflated block: its time and bytes, and (tracing) its stretch
+  void inflated(SpanBuf* sb, int64_t t0, int64_t t1, int64_t bytes) {
+    inflate_ns.fetch_add(t1 - t0, std::memory_order_relaxed);
+    inflate_out_bytes.fetch_add(bytes, std::memory_order_relaxed);
+    if (!sb) return;
+    const int64_t n = sb->n.load(std::memory_order_relaxed);
+    if (n > 0) {
+      SpanEvent& last = sb->ev[n - 1];
+      if (t0 - last.t1.load(std::memory_order_relaxed) < SPAN_MERGE_NS) {
+        last.t1.store(t1, std::memory_order_relaxed);
+        last.a.fetch_add(1, std::memory_order_relaxed);
+        last.b.fetch_add(bytes, std::memory_order_relaxed);
+        return;
+      }
+    }
+    add_span(sb, t0, t1, 1, bytes);
+  }
+};
 
 // ------------------------------------------------- multithreaded BGZF decode
 //
@@ -62,12 +166,26 @@ struct BgzfMT {
   std::map<int64_t, MtBlock> done;
   int inflight = 0;
   size_t max_ahead = 64;  // blocks (64 x 64KB = 4MB window)
+  std::shared_ptr<IoCounters> ctr;  // may be null: nothing is counted
 
   ~BgzfMT() { stop(); }
 
-  bool start(const char* path, int64_t start_addr, int threads) {
+  // the blocks held, inflated or inflating, each counted at its output
+  // buffer and its map entry (caller holds mu)
+  void note_ahead() {
+    if (ctr)
+      ctr->ahead_bytes.store(
+          (int64_t)(done.size() + inflight) * (BGZF_MAX_BLOCK + sizeof(MtBlock)),
+          std::memory_order_relaxed);
+  }
+
+  bool start(const char* path, int64_t start_addr, int threads,
+             std::shared_ptr<IoCounters> counters) {
     fp = fopen(path, "rb");
     if (!fp) return false;
+    ctr = std::move(counters);
+    if (ctr && threads > ctr->inflate_workers.load(std::memory_order_relaxed))
+      ctr->inflate_workers.store(threads, std::memory_order_relaxed);
     read_addr = start_addr;
     fseeko(fp, start_addr, SEEK_SET);
     for (int i = 0; i < threads; i++)
@@ -88,6 +206,7 @@ struct BgzfMT {
       fclose(fp);
       fp = nullptr;
     }
+    if (ctr) ctr->ahead_bytes.store(0, std::memory_order_relaxed);
   }
 
   // read the compressed payload of one block at the current file position
@@ -131,6 +250,7 @@ struct BgzfMT {
 
   void worker() {
     libdeflate_decompressor* dec = libdeflate_alloc_decompressor();
+    SpanBuf* sb = nullptr;  // made at the first block this worker inflates
     for (;;) {
       int64_t addr;
       std::vector<uint8_t> cdata;
@@ -157,6 +277,7 @@ struct BgzfMT {
         }
         read_addr = addr + bsize;
         inflight++;
+        note_ahead();
       }
       MtBlock b;
       b.addr = addr;
@@ -166,9 +287,12 @@ struct BgzfMT {
       memcpy(&isize, cdata.data() + cdata.size() - 4, 4);
       size_t actual = 0;
       if (isize > 0) {
+        if (ctr && !sb) sb = ctr->span_buf(SPAN_INFLATE);
+        const int64_t t0 = ctr ? now_ns() : 0;
         auto r = libdeflate_deflate_decompress(dec, cdata.data(),
                                                cdata.size() - 8, b.data.get(),
                                                BGZF_MAX_BLOCK, &actual);
+        if (ctr) ctr->inflated(sb, t0, now_ns(), (int64_t)actual);
         if (r != LIBDEFLATE_SUCCESS) b.err = "inflate failed";
       }
       if (b.err.empty() && actual != isize) b.err = "BGZF ISIZE mismatch";
@@ -177,6 +301,7 @@ struct BgzfMT {
         std::lock_guard<std::mutex> lk(mu);
         inflight--;
         done[addr] = std::move(b);
+        note_ahead();
       }
       cv_done.notify_all();
     }
@@ -184,28 +309,35 @@ struct BgzfMT {
   }
 
   // blocking fetch of the block at `addr` (must lie on the sequential chain
-  // from start_addr). Returns false only on decode error.
+  // from start_addr). Returns false only on decode error. The time it blocks
+  // counts as the reading thread's block wait.
   bool get(int64_t addr, MtBlock* out) {
     std::unique_lock<std::mutex> lk(mu);
+    int64_t t0 = 0;  // set once it has to wait
     for (;;) {
       auto it = done.find(addr);
-      if (it != done.end()) {
+      const bool past_end = it == done.end() && reader_eof && inflight == 0 &&
+                            (done.empty() || done.begin()->first > addr);
+      if (it != done.end() || past_end) {
+        if (t0 && ctr)
+          ctr->block_wait_ns.fetch_add(now_ns() - t0,
+                                       std::memory_order_relaxed);
+        if (past_end) {
+          out->addr = addr;
+          out->eof = true;
+          out->err.clear();
+          return true;
+        }
         *out = std::move(it->second);
         done.erase(it);
         // drop anything stale before addr (can't happen in-order, but safe)
         while (!done.empty() && done.begin()->first < addr)
           done.erase(done.begin());
+        note_ahead();
         cv_space.notify_all();
         return out->err.empty();
       }
-      if (reader_eof && inflight == 0 &&
-          (done.empty() || done.begin()->first > addr)) {
-        // addr is past the physical end
-        out->addr = addr;
-        out->eof = true;
-        out->err.clear();
-        return true;
-      }
+      if (!t0 && ctr) t0 = now_ns();
       cv_done.wait(lk);
     }
   }
@@ -225,6 +357,7 @@ struct BgzfReader {
   std::string err;
   std::string path_;
   BgzfMT* mt = nullptr;
+  std::shared_ptr<IoCounters> ctr;  // an extract engine's, while it reads
 
   ~BgzfReader() {
     delete mt;
@@ -252,7 +385,7 @@ struct BgzfReader {
     disable_mt();
     if (threads <= 0) return;
     BgzfMT* m = new BgzfMT();
-    if (!m->start(path_.c_str(), next_addr, threads)) {
+    if (!m->start(path_.c_str(), next_addr, threads, ctr)) {
       delete m;
       return;
     }
@@ -332,8 +465,14 @@ struct BgzfReader {
     memcpy(&isize, cdata.data() + cdata_len + 4, 4);
     size_t actual = 0;
     if (isize > 0) {
+      const int64_t t0 = ctr ? now_ns() : 0;
       auto r = libdeflate_deflate_decompress(dec, cdata.data(), cdata_len,
                                              ubuf, BGZF_MAX_BLOCK, &actual);
+      if (ctr) {
+        const int64_t t1 = now_ns();
+        ctr->inflated(nullptr, t0, t1, (int64_t)actual);
+        ctr->block_wait_ns.fetch_add(t1 - t0, std::memory_order_relaxed);
+      }
       if (r != LIBDEFLATE_SUCCESS) { err = "inflate failed"; return false; }
     }
     if (actual != isize) { err = "BGZF ISIZE mismatch"; return false; }
@@ -715,6 +854,9 @@ struct Reader {
   virtual int next(BamRec* r) = 0;  // 1 ok, 0 end, -1 error
   // fixed-header-only parsing for sequential stat passes (no-op by default)
   virtual void set_light(bool) {}
+  // where to count the inflate work: BGZF (BAM) input counts it, CRAM and
+  // SAM text count none
+  virtual void set_counters(std::shared_ptr<IoCounters>) {}
 };
 
 struct BamReader : Reader {
@@ -744,6 +886,9 @@ struct BamReader : Reader {
     return rc;
   }
   void set_light(bool v) override { bam.light = v; }
+  void set_counters(std::shared_ptr<IoCounters> c) override {
+    bam.bgzf.ctr = std::move(c);
+  }
 };
 
 // implemented in cram.cc / samtext.cc

@@ -4,7 +4,13 @@ The engine (`csrc/extract_engine.cc`) reads, pairs and packs each batch into
 the kernel's fused wire payload; a pool of worker threads runs the blocking
 transfer -> scan -> fetch chain so the round trips of in-flight batches
 overlap each other and the next batch's BGZF decode. Feeds stay FIFO: the
-engine's mate cache is order-dependent. The bindings, `peek_max_len`,
+engine's mate cache is order-dependent.
+
+The engine counts its threads' work (`ENGINE_COUNTERS`), and `run` copies
+the counts into its `stats`. While a torch profiler runs, `run` puts the
+feed loop's spans in its trace, and, for a trace that collects them
+(`utils.profiling.maybe_trace`), has the engine keep its producer's and
+inflate workers' spans. The bindings, `peek_max_len`,
 `native_frag_hist` and the engine calls of `NativeExtractor` are the
 reference's (`strling_tpu/io/extract_native.py:24-118` and the class from
 :118); the run loop and the feed are the port's.
@@ -12,7 +18,10 @@ reference's (`strling_tpu/io/extract_native.py:24-118` and the class from
 
 from __future__ import annotations
 
+import contextlib
 import ctypes as C
+import itertools
+import os
 import sys
 import threading
 import time
@@ -25,9 +34,10 @@ import torch
 from strling_tpu_torch.core.tread import TREAD_DTYPE, TreadBatch
 from strling_tpu_torch.io.bam import Bam, _load
 from strling_tpu_torch.ops.kmer import scan_codes, scan_payload
+from strling_tpu_torch.utils.profiling import engine_span_sink
 
-__all__ = ["HOLD_RECORDS", "NativeExtractor", "TEE_SKIP", "TEE_TAKE",
-           "native_frag_hist", "peek_max_len"]
+__all__ = ["ENGINE_COUNTERS", "HOLD_RECORDS", "NativeExtractor", "TEE_SKIP",
+           "TEE_TAKE", "native_frag_hist", "peek_max_len"]
 
 #: the fragment-histogram tee's budget, as the reference's NativeExtractor sets
 #: it (and `native_frag_hist` by default): skip TEE_SKIP records, then count
@@ -41,6 +51,19 @@ TEE_SKIP, TEE_TAKE = 100_000, 2_000_000
 HOLD_RECORDS = TEE_SKIP + 4 * TEE_TAKE
 #: the most scan rows a batch holds (the reference's largest row bucket)
 MAX_ROWS = 65536
+#: the engine's counters, in the order `sio_ex_counters` writes them: the
+#: inflate pool's ns inside libdeflate, the bytes it made and the pool's
+#: size; the producer's ns blocked on a block not yet inflated (or
+#: inflating one itself off the pool) and waiting for room in the ready
+#: queue; the main thread's ns waiting on the producer and in the engine's
+#: feed; the peak of the engine's accounted bytes (`Engine::held_bytes` in
+#: csrc/extract_engine.cc); the span buffers kept and span events dropped
+ENGINE_COUNTERS = ("inflate_ns", "inflate_out_bytes", "inflate_workers",
+                   "producer_block_wait_ns", "producer_space_wait_ns",
+                   "pop_wait_ns", "feed_ns", "held_bytes_peak",
+                   "trace_buffers", "trace_dropped")
+#: counters that two runs on one `stats` combine by their larger value
+PEAK_COUNTERS = ("inflate_workers", "held_bytes_peak", "trace_buffers")
 
 
 def _bind(lib):
@@ -100,6 +123,14 @@ def _bind(lib):
         P(np.uint8), P(np.uint8), P(np.uint8), P(np.uint8), C.c_char_p,
         C.c_int64, P(np.int64),
     ]
+    lib.sio_ex_counters.restype = C.c_int64
+    lib.sio_ex_counters.argtypes = [C.c_void_p, P(np.int64), C.c_int64]
+    lib.sio_ex_pending_bytes.restype = C.c_int64
+    lib.sio_ex_pending_bytes.argtypes = []
+    lib.sio_ex_set_trace.restype = C.c_int
+    lib.sio_ex_set_trace.argtypes = [C.c_void_p, C.c_int]
+    lib.sio_ex_trace_events.restype = C.c_int64
+    lib.sio_ex_trace_events.argtypes = [C.c_void_p, P(np.int64), C.c_int64]
 
 
 _bound = False
@@ -112,6 +143,42 @@ def _lib():
         _bind(lib)
         _bound = True
     return lib
+
+
+def _rss_bytes() -> int:
+    """The process's resident set, from /proc/self/statm."""
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class _Span:
+    """A span of the feed loop in the running profiler's trace, with the
+    number of its batch as the span's one input (`record_function` drops
+    its `args` string from the trace; a traced input shows where the
+    profiler records shapes, as `maybe_trace`'s does)."""
+
+    __slots__ = ("name", "batch", "handle")
+
+    def __init__(self, name: str, batch: int):
+        self.name, self.batch, self.handle = name, batch, None
+
+    def __enter__(self):
+        self.handle = torch._C._autograd._record_function_with_args_enter(
+            self.name, self.batch)
+        return self
+
+    def __exit__(self, *exc):
+        torch._C._autograd._record_function_with_args_exit(self.handle)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _end(span):
+    """Close an open span; returns None, the state of no open span."""
+    if span is not None:
+        span.__exit__(None, None, None)
+    return None
 
 
 def peek_max_len(bam: Bam, n_records: int = 10_000) -> int:
@@ -187,6 +254,25 @@ class NativeExtractor:
                 self._e = None
         except Exception:
             pass
+
+    def counters(self) -> dict[str, int]:
+        """The engine's counters by name (`ENGINE_COUNTERS`)."""
+        out = np.zeros(len(ENGINE_COUNTERS), np.int64)
+        n = self.lib.sio_ex_counters(self._e, out, len(out))
+        if n != len(out):
+            raise RuntimeError(f"the engine has {n} counters, "
+                               f"ENGINE_COUNTERS names {len(out)}")
+        return dict(zip(ENGINE_COUNTERS, out.tolist()))
+
+    def trace_events(self) -> np.ndarray:
+        """The span events the engine kept, int64 rows of (kind: 0 produce,
+        1 inflate; thread id; start and end ns on the steady clock; then a
+        produced batch's number and ns waiting on blocks, or an inflate
+        stretch's blocks and bytes). Read once the pass has drained."""
+        n = self.lib.sio_ex_trace_events(self._e, np.empty(6, np.int64), 0)
+        rows = np.empty((max(n, 1), 6), np.int64)
+        n = min(n, self.lib.sio_ex_trace_events(self._e, rows.reshape(-1), n))
+        return rows[:n]
 
     def _next_fused(self):
         """Fused-payload batch: returns (rows, n_records, payload|None,
@@ -367,7 +453,17 @@ class NativeExtractor:
         h2d/d2h bytes, summed in-flight scan seconds (overlapped across
         workers), total feed-wait seconds on the main thread, and the peak
         number of batches (`max_held`) and records (`max_held_records`)
-        held unfed.
+        held unfed; `engine`, the engine's counters by name (summed over
+        runs, `PEAK_COUNTERS` by their largest); and `rss_start_bytes`, the
+        process's resident set as the first run's loop starts.
+
+        While a torch profiler runs, the loop's spans go in its trace:
+        `strling.extract.engine_pop` (waiting on the engine's next batch),
+        `strling.extract.scan_wait` (on its scan), `strling.extract.feed`,
+        each with the batch's number, and `strling.extract.hold` from the
+        first batch until the median lands. For a trace that collects them
+        (`utils.profiling.engine_span_sink`), the engine keeps its threads'
+        spans and the run hands them over once the pass has drained.
         `hold_drain`, when it returns True, holds feeds (scans keep flying)
         until the fragment histogram the feeds need is ready. Once the held
         batches carry `max_held_records` records, `on_hold_cap` is called
@@ -386,11 +482,21 @@ class NativeExtractor:
         # while they do is held
         held = held_records = 0
         if stats is not None:
+            stats.setdefault("rss_start_bytes", _rss_bytes())
             for key in ("n_batches", "h2d_bytes", "d2h_bytes", "max_held",
                         "max_held_records"):
                 stats.setdefault(key, 0)
             stats.setdefault("scan_s", 0.0)   # summed over workers (overlaps)
             stats.setdefault("wait_s", 0.0)   # main-thread feed-drain wait
+        tracing = torch._C._autograd._profiler_enabled()
+        sink = engine_span_sink() if tracing else None
+        if sink is not None and self.lib.sio_ex_set_trace(self._e, 1) != 0:
+            raise RuntimeError("engine tracing must start before its first "
+                               "batch")
+
+        def span(name, batch):
+            return _Span(name, batch) if tracing else _NO_SPAN
+
         slock = threading.Lock()
 
         def scan_job(payload, layout, ascii_rows, rows, dev):
@@ -411,48 +517,69 @@ class NativeExtractor:
             return out
 
         EMPTY = "empty"  # a batch with no scan rows still takes a feed
-        batch_i = 0
+        scans = 0
+        # (batch number, scan future or EMPTY); batch b is the engine's b-th
         inflight: deque = deque()
-        with ThreadPoolExecutor(max_workers=depth) as pool:
-            while True:
-                rows, n_records, payload, layout, ascii_rows = \
-                    self._next_fused()
-                if n_records > 0:
-                    if rows > 0:
-                        dev = devices[batch_i % len(devices)]
-                        batch_i += 1
-                        inflight.append(pool.submit(
-                            scan_job, payload, layout, ascii_rows, rows, dev))
-                    else:
-                        inflight.append(EMPTY)
-                done = n_records == 0 and bool(self.lib.sio_ex_done(self._e))
-                if not done and hold_drain is not None and hold_drain():
-                    held = len(inflight)
-                    held_records += n_records
-                    if held_records < max_held_records:
-                        continue
-                    on_hold_cap()
-                    hold_drain = pre_feed_hook = None
-                limit = 0 if done else depth - 1
-                while len(inflight) > limit:
-                    if pre_feed_hook is not None:
-                        pre_feed_hook()
-                        pre_feed_hook = None
-                    f = inflight.popleft()
-                    if f is EMPTY:
-                        self._feed(None)
-                    else:
-                        tw = time.perf_counter()
-                        res = f.result()
-                        if stats is not None:
-                            stats["wait_s"] += time.perf_counter() - tw
-                        self._feed(res)
-                if done:
-                    break
-        if pre_feed_hook is not None:
-            pre_feed_hook()
+        hold = None  # the open `strling.extract.hold` span
+        try:
+            with ThreadPoolExecutor(max_workers=depth) as pool:
+                for batch in itertools.count():
+                    with span("strling.extract.engine_pop", batch):
+                        rows, n_records, payload, layout, ascii_rows = \
+                            self._next_fused()
+                    if n_records > 0:
+                        if rows > 0:
+                            dev = devices[scans % len(devices)]
+                            scans += 1
+                            inflight.append((batch, pool.submit(
+                                scan_job, payload, layout, ascii_rows, rows,
+                                dev)))
+                        else:
+                            inflight.append((batch, EMPTY))
+                    done = n_records == 0 and bool(
+                        self.lib.sio_ex_done(self._e))
+                    if not done and hold_drain is not None and hold_drain():
+                        if tracing and hold is None:
+                            hold = span("strling.extract.hold", batch)
+                            hold.__enter__()
+                        held = len(inflight)
+                        held_records += n_records
+                        if held_records < max_held_records:
+                            continue
+                        on_hold_cap()
+                        hold_drain = pre_feed_hook = None
+                        hold = _end(hold)
+                    limit = 0 if done else depth - 1
+                    while len(inflight) > limit:
+                        if pre_feed_hook is not None:
+                            pre_feed_hook()
+                            pre_feed_hook = None
+                            hold = _end(hold)
+                        b, f = inflight.popleft()
+                        res = None
+                        if f is not EMPTY:
+                            tw = time.perf_counter()
+                            with span("strling.extract.scan_wait", b):
+                                res = f.result()
+                            if stats is not None:
+                                stats["wait_s"] += time.perf_counter() - tw
+                        with span("strling.extract.feed", b):
+                            self._feed(res)
+                    if done:
+                        break
+            if pre_feed_hook is not None:
+                pre_feed_hook()
+        finally:
+            _end(hold)
+        if sink is not None:
+            sink.append(self.trace_events())
         if stats is not None:
             stats["max_held"] = max(stats["max_held"], held)
             stats["max_held_records"] = max(stats["max_held_records"],
                                             held_records)
+            engine = stats.setdefault("engine", {})
+            for name, v in self.counters().items():
+                engine[name] = (max(engine.get(name, 0), v)
+                                if name in PEAK_COUNTERS
+                                else engine.get(name, 0) + v)
         return self.treads()

@@ -129,6 +129,9 @@ extern "C" {
   int sio_ex_set_hist_tee(void* e, int64_t skip, int64_t n);
   int sio_ex_hist_ready(void* e);
   int sio_ex_get_hist(void* e, uint32_t* hist, int32_t* max_len);
+  int sio_ex_set_trace(void* e, int on);
+  int64_t sio_ex_counters(void* e, int64_t* out, int64_t n);
+  int64_t sio_ex_trace_events(void* e, int64_t* out, int64_t cap);
   void sio_hubers_batch(const double* X, int64_t L, int64_t S, double c,
                         double tol, int64_t maxiter, double gamma,
                         double* mu, double* sd, uint8_t* meth);
@@ -142,6 +145,9 @@ int main(int argc, char** argv) {
   // hist tee: producer writes, this thread polls/reads — the exact
   // cross-thread pattern extract_native uses (fh_ready acquire gate)
   if (sio_ex_set_hist_tee(e, 100, 100000) != 0) return 4;
+  // spans and counters: the producer and the inflate workers write them,
+  // this thread reads them once the pass has drained
+  if (sio_ex_set_trace(e, 1) != 0) return 6;
   bool hist_read = false;
   uint32_t hist[4096];
   int32_t hmax = 0;
@@ -165,7 +171,13 @@ int main(int argc, char** argv) {
     if (nrec == 0 && sio_ex_done(e)) break;
   }
   if (!hist_read && sio_ex_get_hist(e, hist, &hmax) != 0) return 5;
-  printf("records=%ld treads=%ld\n", (long)total, (long)sio_ex_n_treads(e));
+  int64_t ctr[16];
+  const int64_t n_ctr = sio_ex_counters(e, ctr, 16);
+  const int64_t n_ev = sio_ex_trace_events(e, nullptr, 0);
+  std::vector<int64_t> ev((size_t)(6 * n_ev + 6));
+  if (sio_ex_trace_events(e, ev.data(), n_ev) != n_ev || n_ev < 1) return 7;
+  printf("records=%ld treads=%ld counters=%ld span_events=%ld\n", (long)total,
+         (long)sio_ex_n_treads(e), (long)n_ctr, (long)n_ev);
   sio_ex_destroy(e);
   sio_close(h);
   // multithreaded batched Huber under the same sanitizer

@@ -4,18 +4,38 @@ The reference's only observability is stderr progress (reads/sec every 10M
 reads, extract.nim:317-320). On top of that, `extract` and `call` accept
 `--profile DIR` to capture a torch.profiler trace of the stage (host ops
 always; the card's kernels and copies when a card is in use), written to DIR
-as a Chrome trace JSON (viewable in Perfetto or chrome://tracing), plus
-wall-time stage banners.
+as a Chrome trace JSON (viewable in Perfetto or chrome://tracing). An
+extract trace also holds the feed loop's `strling.extract.*` spans and a
+track for each of the engine's producer and inflate threads, on the
+profiler's time axis.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import json
 import os
 import sys
 import time
 
 import torch
+
+#: the span `maybe_trace` reads the clock inside, to place the engine's
+#: spans on the trace's time axis
+ANCHOR = "strling.clock_anchor"
+#: the engine's span kinds (`sio::SpanKind`): (event name, thread track name)
+ENGINE_SPANS = {0: ("strling.engine.produce", "strling engine: producer"),
+                1: ("strling.engine.inflate", "strling engine: inflate worker")}
+
+_SINK: contextvars.ContextVar[list | None] = contextvars.ContextVar(
+    "strling_engine_spans", default=None)
+
+
+def engine_span_sink() -> list | None:
+    """The list a running `maybe_trace` collects the extract engine's span
+    events in (arrays of `NativeExtractor.trace_events` rows), or None."""
+    return _SINK.get()
 
 
 def trace_name(label: str) -> str:
@@ -37,7 +57,9 @@ def trace_name(label: str) -> str:
 def maybe_trace(trace_dir: str | None, label: str = "stage"):
     """Capture a torch.profiler trace of the enclosed block when a directory
     is given (`DIR/` + `trace_name(label)`, named when the block ends, so a
-    group started inside it counts); otherwise a zero-cost no-op."""
+    group started inside it counts); otherwise a zero-cost no-op. The
+    extract engine's spans of the block are merged into it
+    (`_merge_engine_spans`)."""
     if not trace_dir:
         yield
         return
@@ -48,13 +70,23 @@ def maybe_trace(trace_dir: str | None, label: str = "stage"):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     t0 = time.perf_counter()
-    prof = profile(activities=activities)
+    sink: list = []
+    token = _SINK.set(sink)
+    # shapes recorded: the feed loop's spans carry their batch as an input
+    prof = profile(activities=activities, record_shapes=True)
     prof.start()
+    reads = []
+    for _ in range(3):
+        with torch.profiler.record_function(ANCHOR):
+            reads.append(time.perf_counter_ns())
     try:
         yield
     finally:
+        _SINK.reset(token)
         prof.stop()
-        prof.export_chrome_trace(os.path.join(trace_dir, trace_name(label)))
+        path = os.path.join(trace_dir, trace_name(label))
+        prof.export_chrome_trace(path)
+        _merge_engine_spans(path, reads, sink)
         print(
             f"[strling] {label}: {time.perf_counter() - t0:.2f}s; "
             f"profiler trace written to {trace_dir}",
@@ -62,16 +94,47 @@ def maybe_trace(trace_dir: str | None, label: str = "stage"):
         )
 
 
-@contextlib.contextmanager
-def stage_timer(label: str, verbose: bool = True):
-    """Wall-clock banner for a pipeline stage (cpuTime() analog,
-    extract.nim:304)."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if verbose:
-            print(
-                f"[strling] time for {label}: {time.perf_counter() - t0:.2f}s",
-                file=sys.stderr,
-            )
+def _merge_engine_spans(path: str, reads: list[int], sink: list) -> None:
+    """Put the engine's spans into the Chrome trace at `path`, one track
+    per engine thread, and give the feed loop's `strling.extract.*` spans
+    their batch number as `args["batch"]`.
+
+    `reads` are perf_counter_ns readings taken inside the trace's `ANCHOR`
+    spans, in order. Each anchor's `ts` minus its reading is the offset from
+    the steady clock (the engine's, and perf_counter's) to the trace's axis,
+    too low by the time from the span's start to the reading; the largest
+    of them is used, whatever clock the profiler keeps its axis on."""
+    with open(path) as fh:
+        trace = json.load(fh)
+    events = trace["traceEvents"]
+    anchors = sorted((e for e in events
+                      if e.get("name") == ANCHOR and e.get("ph") == "X"),
+                     key=lambda e: float(e["ts"]))
+    if len(anchors) != len(reads):
+        raise RuntimeError(f"{path}: {len(anchors)} clock anchors, "
+                           f"{len(reads)} readings")
+    offset_us = max(float(e["ts"]) - r / 1e3 for e, r in zip(anchors, reads))
+    pid = anchors[0]["pid"]
+    for e in events:
+        if (e.get("cat") == "user_annotation"
+                and e.get("name", "").startswith("strling.extract.")):
+            args = e.setdefault("args", {})
+            inputs = args.get("Concrete Inputs")
+            if inputs and inputs[0] != "":
+                args["batch"] = int(inputs[0])
+    tracks = {}
+    for rows in sink:
+        for kind, tid, t0, t1, a, b in rows.tolist():
+            name, track = ENGINE_SPANS[kind]
+            tracks[tid] = track
+            args = ({"batch": a, "block_wait_us": b / 1e3} if kind == 0
+                    else {"blocks": a, "bytes": b})
+            events.append({"ph": "X", "cat": "strling_engine", "name": name,
+                           "pid": pid, "tid": tid,
+                           "ts": t0 / 1e3 + offset_us,
+                           "dur": (t1 - t0) / 1e3, "args": args})
+    for tid, track in tracks.items():
+        events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                       "tid": tid, "args": {"name": track}})
+    with open(path, "w") as fh:
+        json.dump(trace, fh)

@@ -256,18 +256,9 @@ def test_small_batches_many_workers(str_bam):
     assert stats["d2h_bytes"] == 12 * n_rows
 
 
-@pytest.mark.parametrize("cap", [1, 100])
-def test_hold_cap_falls_back_to_own_hist_pass(cap, tmp_path, monkeypatch):
-    """F3: few records pass the fragment histogram's predicate (9 pairs in
-    10 are not proper pairs), so the tee is ready only at the end of the
-    stream and every batch would be held. With small batches the held
-    records reach `max_held_records`; past it the median comes from
-    native_frag_hist and the bin is still the reference's."""
-    import functools
-
-    from strling_tpu_torch.core import extract as port_extract
-    from strling_tpu_torch.io.extract_native import NativeExtractor
-
+def _held_bam(path):
+    """300 pairs, 9 in 10 not proper pairs: the fragment histogram's tee is
+    ready only at the end of the stream, so feeds hold every batch."""
     rng = np.random.default_rng(21)
     recs = []
     for i in range(300):
@@ -282,8 +273,23 @@ def test_hold_cap_falls_back_to_own_hist_pass(cap, tmp_path, monkeypatch):
         recs.append(BamRecord(f"h{i}", f2, 0, pos + isz - 100, 60, "100M", 0,
                               pos, -isz, s2))
     recs.sort(key=lambda r: r.pos)
-    path = str(tmp_path / "held.bam")
     write_bam(path, HEADER, TARGETS, recs)
+    return path
+
+
+@pytest.mark.parametrize("cap", [1, 100])
+def test_hold_cap_falls_back_to_own_hist_pass(cap, tmp_path, monkeypatch):
+    """F3: few records pass the fragment histogram's predicate (9 pairs in
+    10 are not proper pairs), so the tee is ready only at the end of the
+    stream and every batch would be held. With small batches the held
+    records reach `max_held_records`; past it the median comes from
+    native_frag_hist and the bin is still the reference's."""
+    import functools
+
+    from strling_tpu_torch.core import extract as port_extract
+    from strling_tpu_torch.io.extract_native import NativeExtractor
+
+    path = _held_bam(str(tmp_path / "held.bam"))
     monkeypatch.setattr(NativeExtractor, "run", functools.partialmethod(
         NativeExtractor.run, max_held_records=cap))
     monkeypatch.setattr(port_extract, "NativeExtractor", functools.partial(

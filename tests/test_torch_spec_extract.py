@@ -20,7 +20,7 @@ from strling_tpu.io.binfmt import write_bin as ref_write_bin
 from strling_tpu_torch.core.extract import Extractor, extract, extract_native
 from strling_tpu_torch.core.genome_index import GenomeIndex
 from strling_tpu_torch.io import Bam, write_bin
-from strling_tpu_torch.utils.profiling import maybe_trace, stage_timer
+from strling_tpu_torch.utils.profiling import maybe_trace
 
 from test_extract import _str_bam
 from test_golden import _check
@@ -163,7 +163,7 @@ def test_maybe_trace_writes_a_chrome_trace(tmp_path, capsys):
 
 
 def test_maybe_trace_without_a_directory_is_a_no_op(tmp_path, capsys):
-    with maybe_trace(None, "extract"), stage_timer("step", verbose=False):
+    with maybe_trace(None, "extract"):
         pass
     assert capsys.readouterr().err == ""
     assert os.listdir(tmp_path) == []
