@@ -681,7 +681,8 @@ def phase_main_path(work: str):
     say(f"e2e attribution: batches={stats['n_batches']} "
         f"h2d={stats['h2d_bytes'] / 1e6:.3f}MB d2h={stats['d2h_bytes'] / 1e6:.3f}MB "
         f"device_wait={stats['wait_s']:.3f}s inflight_scan={stats['scan_s']:.3f}s "
-        f"host_loop={wall - stats['wait_s']:.3f}s max_held={stats['max_held']}")
+        f"host_loop={wall - stats['wait_s']:.3f}s "
+        f"fed_before_median={stats['engine']['fed_before_median']}")
     counts = _counts()
     launches = sum(n for (layout, modal, variant), n in counts.items()
                    if modal == "pairwise" and variant == "full")

@@ -48,13 +48,7 @@ from strling_tpu_torch.core.tread import (
     TreadBatch,
 )
 from strling_tpu_torch.io import Bam
-from strling_tpu_torch.io.extract_native import (
-    TEE_SKIP,
-    TEE_TAKE,
-    NativeExtractor,
-    native_frag_hist,
-    peek_max_len,
-)
+from strling_tpu_torch.io.extract_native import NativeExtractor, peek_max_len
 from strling_tpu_torch.ops.encode import canonical_repeat, min_rev_complement
 from strling_tpu_torch.ops.kmer import get_repeat_batch, units_to_strings
 from strling_tpu_torch.utils import fraglen
@@ -445,11 +439,11 @@ def extract_native(bam, fasta: str | None, genome_repeats_path: str | None,
     (default: one CUDA card). Returns (TreadBatch, frag_dist, opts).
 
     The fragment-length pre-pass (utils.nim:86-111) rides the engine's own
-    record stream: feeds hold until its 2M-record budget is consumed (scans
-    keep flying meanwhile) and the median lands just before the first feed.
-    Once the held batches carry `io.extract_native.HOLD_RECORDS` records,
-    the histogram comes from its own pass over the file
-    (`native_frag_hist`) and feeding resumes.
+    record stream, and the engine feeds from the first batch with the median
+    pending: the median is set as soon as the tee's 2M-record budget is
+    consumed (at the latest at the end of the stream), and the engine then
+    adds its term to the few positions fed before it (`NativeExtractor.run`),
+    so nothing is held and the bin is the reference's.
     The wire width is probed from the first 10k records; if a later read
     turns out longer (it would have been truncated on the wire), extraction
     runs again at the exact width."""
@@ -467,28 +461,13 @@ def extract_native(bam, fasta: str | None, genome_repeats_path: str | None,
     print("[strling] collecting str-like reads", file=sys.stderr)
     t0 = time.time()
     Lcap = max(32, ((peek_len + 7) // 8) * 8) if peek_len else None
-    ne = NativeExtractor(bam, proportion_repeat, min_mapq, 0,
-                         genome_index=genome_index, Lmax=Lcap, frag_tee=True)
-
-    def set_median(hist):
-        median = fraglen.median(hist)
-        ne.set_median(median)
-        opts.median_fragment_length = median
-        if verbose:
-            print(f"Calculated median fragment length:{median}",
-                  file=sys.stderr)
-
-    def median_from_own_pass():
-        # too many records held waiting for the tee (few pass the
-        # histogram's predicate): the standalone pass over a second handle
-        # reads the same records with the same predicate and budget, so the
-        # median, and the bin, are the ones the tee would have given
-        second = Bam(bam.path, fasta=getattr(bam, "fasta", None))
-        set_median(native_frag_hist(second, TEE_SKIP, TEE_TAKE))
-
-    tb = ne.run(devs, pre_feed_hook=lambda: set_median(ne.get_hist()[0]),
-                stats=stats, hold_drain=lambda: not ne.hist_ready,
-                on_hold_cap=median_from_own_pass)
+    ne = NativeExtractor(bam, proportion_repeat, min_mapq, None,
+                         genome_index=genome_index, Lmax=Lcap)
+    tb = ne.run(devs, stats=stats)
+    opts.median_fragment_length = ne.median
+    if verbose:
+        print(f"Calculated median fragment length:{ne.median}",
+              file=sys.stderr)
     frag_dist, max_read_len = ne.get_hist()
     # NativeExtractor caps at min(bam.Lmax, Lcap): the effective width is
     # what the retry guard compares against

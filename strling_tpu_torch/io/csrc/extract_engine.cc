@@ -180,6 +180,16 @@ struct Engine {
   int min_mapq = 40;
   int64_t median_fragment_length = 0;
   int Lmax = 256;
+  // The median is pending where sio_ex_create was given a negative one. It
+  // enters only a position's term in adjust_by, which then leaves the term
+  // out; feed() records where each such tread went and the term's sign,
+  // and sio_ex_set_median adds the term to them.
+  bool median_pending = false;
+  struct Deferred {
+    size_t i;   // index in out
+    int32_t c;  // out[i].position lacks c * median
+  };
+  std::vector<Deferred> deferred;
 
   bool has_gi = false;
   bool prefilter = true;
@@ -303,6 +313,9 @@ struct Engine {
   // producer adds its wait for room in the ready queue once a batch.
   std::shared_ptr<sio::IoCounters> io = std::make_shared<sio::IoCounters>();
   int64_t pop_wait_ns = 0, feed_ns = 0, held_bytes_peak = 0;
+  // records fed while the median was pending; treads whose position
+  // sio_ex_set_median changed
+  int64_t fed_before_median = 0, median_patched = 0;
   std::atomic<int64_t> space_wait_ns{0};
   // held_bytes()'s parts, kept as they change
   std::deque<int64_t> queue_bytes;  // each queued batch's, as enqueued
@@ -318,7 +331,8 @@ struct Engine {
   //    array, and the keys' heap;
   //  - Produced batches in the ready queue and the pool: their buffers'
   //    capacities, with the Pending batch a ready one carries;
-  //  - out and spill: capacity x sizeof(Tread) + the qnames' heap;
+  //  - out and spill: capacity x sizeof(Tread) + the qnames' heap, and
+  //    the treads waiting for the median's term;
   //  - the producer's row buffers, and the blocks BgzfMT holds inflated
   //    ahead or inflating.
   // Not counted: the batch the producer is building, the reader's own
@@ -330,6 +344,7 @@ struct Engine {
            (int64_t)(tbl.bucket_count() * sizeof(void*)) + tbl_key_heap +
            (int64_t)(out.capacity() * sizeof(Tread)) + out_heap +
            (int64_t)(spill.capacity() * sizeof(Tread)) + spill_heap +
+           (int64_t)(deferred.capacity() * sizeof(Deferred)) +
            prod_bytes.load(std::memory_order_relaxed) +
            scratch_bytes.load(std::memory_order_relaxed) +
            io->ahead_bytes.load(std::memory_order_relaxed);
@@ -352,6 +367,21 @@ struct Engine {
   void emit(std::vector<Tread>& v, Tread&& t) {
     v.push_back(std::move(t));
     (&v == &out ? out_heap : spill_heap) += str_heap(v.back().qname);
+  }
+
+  // append a tread adjust_by kept to out; c is the sign of the median's
+  // term that its position lacks while the median is pending
+  void emit_adjusted(const Tread& t, int c) {
+    if (c != 0 && median_pending) deferred.push_back({out.size(), c});
+    emit(out, Tread(t));
+  }
+
+  // the treads' positions lack the median's term while it is pending:
+  // reading them is refused then, with the engine's error set
+  bool refuse_pending() {
+    if (median_pending)
+      err = "the fragment-length median is pending (sio_ex_set_median)";
+    return median_pending;
   }
 
   ~Engine() {
@@ -1001,22 +1031,33 @@ struct Engine {
     return false;
   }
 
-  // extract.nim:141-179; mutates a, returns keep
-  bool adjust_by(Tread& a, const Tread& b, uint32_t b_position) const {
+  // extract.nim:141-179; mutates a, returns keep. *c is the sign of the
+  // median's term in a's new position (0 where it has none); while the
+  // median is pending the term is left out. Positions are uint32, so the
+  // term can be added later, wrapping as the whole sum would.
+  bool adjust_by(Tread& a, const Tread& b, uint32_t b_position, int* c) const {
+    *c = 0;
     if (a.repeat_count == 0) return false;
     if (b.mapq > min_mapq &&
         ((a.p_repeat() > proportion_repeat && b.p_repeat() < 0.2) ||
          (!(a.flag & FLAG_PROPER_PAIR) && a.mapq < min_mapq))) {
+      const uint32_t median =
+          median_pending ? 0 : (uint32_t)median_fragment_length;
       uint32_t half = (uint32_t)(int64_t)(a.align_length / 2.0 + 0.5);
       if (b.flag & FLAG_REVERSE) {
-        a.position = (uint32_t)(b_position - (uint32_t)median_fragment_length +
-                                b.align_length + half);
-        if (b.split == SOFT_NONE_LEFT) a.position = b_position;
+        a.position = (uint32_t)(b_position - median + b.align_length + half);
+        *c = -1;
+        if (b.split == SOFT_NONE_LEFT) {
+          a.position = b_position;
+          *c = 0;
+        }
       } else {
-        a.position =
-            (uint32_t)(b_position + (uint32_t)median_fragment_length - half);
-        if (b.split == SOFT_NONE_RIGHT)
+        a.position = (uint32_t)(b_position + median - half);
+        *c = 1;
+        if (b.split == SOFT_NONE_RIGHT) {
           a.position = b_position + (uint32_t)b.align_length;
+          *c = 0;
+        }
       }
       a.split = SOFT_NONE;
       a.tid = b.tid;
@@ -1072,6 +1113,7 @@ struct Engine {
     queue.pop_front();
     const int64_t batch_bytes = queue_bytes.front();
     queue_bytes.pop_front();
+    if (median_pending) fed_before_median += (int64_t)batch.size();
     // non-const: qnames are MOVED out of the batch below (a const ref
     // would silently bind std::move to the copy constructor)
     for (Pending& p : batch) {
@@ -1157,8 +1199,9 @@ struct Engine {
         uint32_t mp = mate.position;
         mate.ksub = 2;
         tr.ksub = 3;
-        if (adjust_by(mate, tr, tr.position)) emit(out, Tread(mate));
-        if (adjust_by(tr, mate, mp)) emit(out, Tread(tr));
+        int c;
+        if (adjust_by(mate, tr, tr.position, &c)) emit_adjusted(mate, c);
+        if (adjust_by(tr, mate, mp, &c)) emit_adjusted(tr, c);
       } else {
         add_soft(p, /*first=*/true, tr.repeat);
         if (sharded && p.mate_tid >= 0 &&
@@ -1193,6 +1236,8 @@ struct Engine {
 
 extern "C" {
 
+// A negative median_fragment_length leaves the median pending until
+// sio_ex_set_median (see there).
 void* sio_ex_create(void* bam_handle, double proportion_repeat, int min_mapq,
                     int64_t median_fragment_length, int Lmax) {
   auto* h = (sio::Handle*)bam_handle;
@@ -1200,7 +1245,8 @@ void* sio_ex_create(void* bam_handle, double proportion_repeat, int min_mapq,
   e->src = h->rd;
   e->proportion_repeat = proportion_repeat;
   e->min_mapq = min_mapq;
-  e->median_fragment_length = median_fragment_length;
+  e->median_fragment_length = std::max<int64_t>(0, median_fragment_length);
+  e->median_pending = median_fragment_length < 0;
   e->Lmax = Lmax;
   h->rd->set_counters(e->io);
   int n = (int)h->rd->ref_names().size();
@@ -1280,7 +1326,8 @@ int64_t sio_ex_counters(void* ve, int64_t* out, int64_t n) {
   const int64_t v[] = {get(io.inflate_ns), get(io.inflate_out_bytes),
                        get(io.inflate_workers), get(io.block_wait_ns),
                        get(e->space_wait_ns), e->pop_wait_ns, e->feed_ns,
-                       e->held_bytes_peak, n_bufs, get(io.dropped)};
+                       e->held_bytes_peak, n_bufs, get(io.dropped),
+                       e->fed_before_median, e->median_patched};
   const int64_t count = sizeof(v) / sizeof(v[0]);
   for (int64_t i = 0; i < std::min(n, count); i++) out[i] = v[i];
   return count;
@@ -1358,8 +1405,8 @@ int sio_ex_set_hist_tee(void* ve, int64_t skip_reads, int64_t n_reads) {
 }
 
 // 1 once the teed histogram is frozen: the reference's 2M-record budget was
-// consumed, or the phase-0 stream ended. The driver holds feeds (which are
-// the only consumer of the median) until this flips.
+// consumed, or the phase-0 stream ended. The driver then sets the median
+// (sio_ex_set_median).
 int sio_ex_hist_ready(void* ve) {
   return ((Engine*)ve)->fh_ready.load(std::memory_order_acquire) ? 1 : 0;
 }
@@ -1393,12 +1440,25 @@ void sio_ex_set_prefilter(void* ve, int enabled) {
   ((Engine*)ve)->prefilter = enabled != 0;
 }
 
-// Deferred median: the fragment-length pre-pass (utils.nim:86-111) can run
-// concurrently with the producer because the median is only consumed by
-// feed()'s adjust_by (extract.nim:141-179). Must be set before the first
-// sio_ex_feed.
-void sio_ex_set_median(void* ve, int64_t median) {
-  ((Engine*)ve)->median_fragment_length = median;
+// Deferred median: the fragment-length pre-pass (utils.nim:86-111) runs on
+// the engine's own stream (the tee), and the median enters nothing but one
+// term of the positions adjust_by writes (extract.nim:141-179). So an
+// engine created with its median pending feeds from the first batch; this
+// call, at any point before the treads are read, adds the term to the
+// treads fed so far (out[i].position += c * median, uint32) and hands the
+// median to the feeds that follow. 0, or -1 where the median is not
+// pending or is negative.
+int sio_ex_set_median(void* ve, int64_t median) {
+  Engine* e = (Engine*)ve;
+  if (!e->median_pending || median < 0) return -1;
+  const uint32_t m = (uint32_t)median;
+  for (const Engine::Deferred& d : e->deferred)
+    e->out[d.i].position += (uint32_t)d.c * m;
+  if (m != 0) e->median_patched += (int64_t)e->deferred.size();
+  std::vector<Engine::Deferred>().swap(e->deferred);
+  e->median_fragment_length = median;
+  e->median_pending = false;
+  return 0;
 }
 
 // Longest primary-record l_seq the engine has seen (to validate a peeked
@@ -1448,7 +1508,10 @@ int64_t sio_ex_get_spill(void* ve, int32_t* tid, uint32_t* position,
     mapq[i] = t.mapq;
     repeat_count[i] = t.repeat_count;
     align_length[i] = t.align_length;
-    if (qoff + (int64_t)t.qname.size() > qname_cap) return -1;
+    if (qoff + (int64_t)t.qname.size() > qname_cap) {
+      e->err = "qname buffer overflow";
+      return -1;
+    }
     memcpy(qname_buf + qoff, t.qname.data(), t.qname.size());
     qoff += (int64_t)t.qname.size();
     qname_off[i + 1] = qoff;
@@ -1462,6 +1525,7 @@ int64_t sio_ex_get_spill(void* ve, int32_t* tid, uint32_t* position,
 int64_t sio_ex_get_keys(void* ve, int which, uint8_t* seg, int32_t* ktid,
                         int64_t* krank, uint8_t* ksub) {
   Engine* e = (Engine*)ve;
+  if (!which && e->refuse_pending()) return -1;
   const std::vector<Tread>& v = which ? e->spill : e->out;
   for (size_t i = 0; i < v.size(); i++) {
     seg[i] = v[i].kseg;
@@ -1482,6 +1546,7 @@ int64_t sio_ex_get_treads(void* ve, int32_t* tid, uint32_t* position,
                           uint8_t* align_length, char* qname_buf,
                           int64_t qname_cap, int64_t* qname_off) {
   Engine* e = (Engine*)ve;
+  if (e->refuse_pending()) return -1;
   int64_t qoff = 0;
   qname_off[0] = 0;
   for (size_t i = 0; i < e->out.size(); i++) {
@@ -1494,7 +1559,10 @@ int64_t sio_ex_get_treads(void* ve, int32_t* tid, uint32_t* position,
     mapq[i] = t.mapq;
     repeat_count[i] = t.repeat_count;
     align_length[i] = t.align_length;
-    if (qoff + (int64_t)t.qname.size() > qname_cap) return -1;
+    if (qoff + (int64_t)t.qname.size() > qname_cap) {
+      e->err = "qname buffer overflow";
+      return -1;
+    }
     memcpy(qname_buf + qoff, t.qname.data(), t.qname.size());
     qoff += (int64_t)t.qname.size();
     qname_off[i + 1] = qoff;

@@ -13,7 +13,7 @@ feed loop's spans in its trace, and, for a trace that collects them
 inflate workers' spans. The bindings, `peek_max_len`,
 `native_frag_hist` and the engine calls of `NativeExtractor` are the
 reference's (`strling_tpu/io/extract_native.py:24-118` and the class from
-:118); the run loop and the feed are the port's.
+:118); the run loop, the feed and the deferred median are the port's.
 """
 
 from __future__ import annotations
@@ -34,10 +34,11 @@ import torch
 from strling_tpu_torch.core.tread import TREAD_DTYPE, TreadBatch
 from strling_tpu_torch.io.bam import Bam, _load
 from strling_tpu_torch.ops.kmer import scan_codes, scan_payload
+from strling_tpu_torch.utils import fraglen
 from strling_tpu_torch.utils.profiling import engine_span_sink
 
-__all__ = ["ENGINE_COUNTERS", "HOLD_RECORDS", "NativeExtractor", "TEE_SKIP",
-           "TEE_TAKE", "native_frag_hist", "peek_max_len"]
+__all__ = ["ENGINE_COUNTERS", "NativeExtractor", "TEE_SKIP", "TEE_TAKE",
+           "native_frag_hist", "peek_max_len"]
 
 #: the fragment-histogram tee's budget, as the reference's NativeExtractor sets
 #: it (and `native_frag_hist` by default): skip TEE_SKIP records, then count
@@ -45,10 +46,6 @@ __all__ = ["ENGINE_COUNTERS", "HOLD_RECORDS", "NativeExtractor", "TEE_SKIP",
 #: 0 <= isize <= 4095: about half the records of paired WGS, one mate of
 #: each pair)
 TEE_SKIP, TEE_TAKE = 100_000, 2_000_000
-#: records that feeds may hold while the tee fills: its need where a
-#: quarter of the records pass (a held record costs the engine ~110 bytes
-#: plus its name)
-HOLD_RECORDS = TEE_SKIP + 4 * TEE_TAKE
 #: the most scan rows a batch holds (the reference's largest row bucket)
 MAX_ROWS = 65536
 #: the engine's counters, in the order `sio_ex_counters` writes them: the
@@ -57,11 +54,14 @@ MAX_ROWS = 65536
 #: inflating one itself off the pool) and waiting for room in the ready
 #: queue; the main thread's ns waiting on the producer and in the engine's
 #: feed; the peak of the engine's accounted bytes (`Engine::held_bytes` in
-#: csrc/extract_engine.cc); the span buffers kept and span events dropped
+#: csrc/extract_engine.cc); the span buffers kept and span events dropped;
+#: the records fed while the median was pending, and the treads whose
+#: position its late arrival changed
 ENGINE_COUNTERS = ("inflate_ns", "inflate_out_bytes", "inflate_workers",
                    "producer_block_wait_ns", "producer_space_wait_ns",
                    "pop_wait_ns", "feed_ns", "held_bytes_peak",
-                   "trace_buffers", "trace_dropped")
+                   "trace_buffers", "trace_dropped", "fed_before_median",
+                   "median_patched")
 #: counters that two runs on one `stats` combine by their larger value
 PEAK_COUNTERS = ("inflate_workers", "held_bytes_peak", "trace_buffers")
 
@@ -94,6 +94,7 @@ def _bind(lib):
         C.c_void_p, C.c_int64, C.c_int64, P(np.uint32), C.POINTER(C.c_int32),
     ]
     lib.sio_ex_set_prefilter.argtypes = [C.c_void_p, C.c_int]
+    lib.sio_ex_set_median.restype = C.c_int
     lib.sio_ex_set_median.argtypes = [C.c_void_p, C.c_int64]
     lib.sio_ex_max_len.restype = C.c_int64
     lib.sio_ex_max_len.argtypes = [C.c_void_p]
@@ -174,13 +175,6 @@ class _Span:
 _NO_SPAN = contextlib.nullcontext()
 
 
-def _end(span):
-    """Close an open span; returns None, the state of no open span."""
-    if span is not None:
-        span.__exit__(None, None, None)
-    return None
-
-
 def peek_max_len(bam: Bam, n_records: int = 10_000) -> int:
     """Max l_seq over the first records (cheap Lmax probe; the engine
     reports its true max after the run so a longer late read triggers an
@@ -202,13 +196,22 @@ def native_frag_hist(bam: Bam, skip_reads: int = TEE_SKIP,
 
 
 class NativeExtractor:
-    """The C++ extract engine, scanning on torch devices."""
+    """The C++ extract engine, scanning on torch devices.
+
+    With `median_fragment_length` None, the engine takes the fragment-length
+    histogram on its own record stream (the tee; the same records and
+    predicate as `native_frag_hist`, one decode pass for the whole extract)
+    and its median is pending: it feeds from the first batch, and `run`
+    sets the median from the tee once the tee is ready (`median` then holds
+    it)."""
 
     def __init__(self, bam: Bam, proportion_repeat: float, min_mapq: int,
-                 median_fragment_length: int, genome_index=None,
+                 median_fragment_length: int | None, genome_index=None,
                  batch_records: int = 200_000, Lmax: int | None = None,
-                 prefilter: bool = True, rows_per_batch: int = 4096,
-                 frag_tee: bool = False):
+                 prefilter: bool = True, rows_per_batch: int = 4096):
+        if median_fragment_length is not None and median_fragment_length < 0:
+            raise ValueError("the fragment-length median cannot be negative, "
+                             f"got {median_fragment_length}")
         self.lib = _lib()
         self.bam = bam
         # transfer width: the max read length (rounded up) bounds the packed
@@ -223,19 +226,15 @@ class NativeExtractor:
         # ~110B + a qname, so the cap bounds a row-starved stretch at ~25MB
         # buffered per produced batch)
         self.rows_cap = max(8, min(rows_per_batch, MAX_ROWS))
+        self.median = median_fragment_length
         self._e = self.lib.sio_ex_create(
-            bam._h, proportion_repeat, min_mapq, median_fragment_length, self.Lmax
-        )
+            bam._h, proportion_repeat, min_mapq,
+            -1 if self.median is None else self.median, self.Lmax)
         if not prefilter:
             self.lib.sio_ex_set_prefilter(self._e, 0)
-        if frag_tee:
-            # fragment-length histogram accumulated on the engine's OWN
-            # record stream (same predicate/stream as native_frag_hist) —
-            # one BGZF decode pass for the whole extract instead of two
-            rc = self.lib.sio_ex_set_hist_tee(self._e, TEE_SKIP, TEE_TAKE)
-            if rc != 0:
-                raise RuntimeError("hist tee must be enabled before reading"
-                                   " (and never in sharded mode)")
+        if (self.median is None and
+                self.lib.sio_ex_set_hist_tee(self._e, TEE_SKIP, TEE_TAKE)):
+            raise RuntimeError("the engine refused the fragment-length tee")
         if genome_index is not None:
             name_to_tid = {t.name: t.tid for t in bam.targets}
             for chrom, (starts, pmax) in genome_index.by_chrom.items():
@@ -311,9 +310,13 @@ class NativeExtractor:
         return rows, int(n_records.value), payload, layout, None
 
     def set_median(self, median: int):
-        """Set the fragment-length median (deferred-median mode); must run
-        before the first feed — adjust_by is its only consumer."""
-        self.lib.sio_ex_set_median(self._e, int(median))
+        """Set the pending fragment-length median: the treads fed so far
+        get its term in their positions, and the feeds that follow use it
+        (`sio_ex_set_median`). Once, before the treads are read."""
+        if self.lib.sio_ex_set_median(self._e, int(median)) != 0:
+            raise RuntimeError("the median is set once, on an engine created "
+                               f"without one, and is not negative: {median}")
+        self.median = int(median)
 
     @property
     def hist_ready(self) -> bool:
@@ -323,7 +326,7 @@ class NativeExtractor:
 
     def get_hist(self):
         """(hist[4096] uint32, max_read_len) from the engine tee; raises if
-        not yet ready (see hist_ready / run(hold_drain=...))."""
+        not yet ready (see hist_ready)."""
         hist = np.zeros(4096, np.uint32)
         ml = C.c_int32(0)
         if self.lib.sio_ex_get_hist(self._e, hist, C.byref(ml)) != 0:
@@ -368,7 +371,8 @@ class NativeExtractor:
         ktid = np.empty(n, np.int32)
         krank = np.empty(n, np.int64)
         ksub = np.empty(n, np.uint8)
-        lib.sio_ex_get_keys(self._e, which, seg, ktid, krank, ksub)
+        if lib.sio_ex_get_keys(self._e, which, seg, ktid, krank, ksub) < 0:
+            raise RuntimeError(lib.sio_ex_error(self._e).decode())
         return seg, ktid, krank, ksub
 
     def _read_treads(self, count_fn, get_fn) -> TreadBatch:
@@ -389,7 +393,7 @@ class NativeExtractor:
             align_length, qbuf, qcap, qoff,
         )
         if rc < 0:
-            raise IOError("qname buffer overflow")
+            raise IOError(self.lib.sio_ex_error(self._e).decode())
         data = np.zeros(n, TREAD_DTYPE)
         data["tid"] = tid
         data["position"] = position
@@ -440,51 +444,38 @@ class NativeExtractor:
             raise IOError(self.lib.sio_ex_error(self._e).decode())
 
     def run(self, devices: list[torch.device], depth: int = 8,
-            pre_feed_hook=None, stats: dict | None = None,
-            hold_drain=None, max_held_records: int = HOLD_RECORDS,
-            on_hold_cap=None) -> TreadBatch:
+            stats: dict | None = None) -> TreadBatch:
         """Pipelined loop. Each batch comes out of the engine in the fused
         wire layout; `depth` worker threads scan batches (round-robin over
         `devices`) while the main thread decodes and pairs the next one.
         Feeds are drained in submission order, so the output is identical
-        for any device list.
+        for any device list. Feeds start with the first batch. Where the
+        median is pending, it is set from the engine's tee after the first
+        pop that finds the tee ready, or once the pass has drained at the
+        latest (the tee freezes at the end of the whole-file stream), and
+        the engine adds its term to the treads fed before it.
 
         `stats`, when given, accumulates transfer attribution: n_batches,
         h2d/d2h bytes, summed in-flight scan seconds (overlapped across
-        workers), total feed-wait seconds on the main thread, and the peak
-        number of batches (`max_held`) and records (`max_held_records`)
-        held unfed; `engine`, the engine's counters by name (summed over
-        runs, `PEAK_COUNTERS` by their largest); and `rss_start_bytes`, the
-        process's resident set as the first run's loop starts.
+        workers) and total feed-wait seconds on the main thread; `engine`,
+        the engine's counters by name (summed over runs, `PEAK_COUNTERS` by
+        their largest); and `rss_start_bytes`, the process's resident set
+        as the first run's loop starts.
 
         While a torch profiler runs, the loop's spans go in its trace:
         `strling.extract.engine_pop` (waiting on the engine's next batch),
-        `strling.extract.scan_wait` (on its scan), `strling.extract.feed`,
-        each with the batch's number, and `strling.extract.hold` from the
-        first batch until the median lands. For a trace that collects them
-        (`utils.profiling.engine_span_sink`), the engine keeps its threads'
-        spans and the run hands them over once the pass has drained.
-        `hold_drain`, when it returns True, holds feeds (scans keep flying)
-        until the fragment histogram the feeds need is ready. Once the held
-        batches carry `max_held_records` records, `on_hold_cap` is called
-        once in place of `pre_feed_hook` (it must give the engine its median
-        another way) and feeding resumes."""
+        `strling.extract.scan_wait` (on its scan), `strling.extract.feed`
+        and `strling.extract.median` (setting the median and patching the
+        treads fed before it), each with the batch's number. For a trace
+        that collects them (`utils.profiling.engine_span_sink`), the engine
+        keeps its threads' spans and the run hands them over once the pass
+        has drained."""
         if not devices:
             raise ValueError("run needs at least one torch device")
-        if hold_drain is not None and on_hold_cap is None:
-            raise ValueError("hold_drain needs on_hold_cap for when the "
-                             "held records reach max_held_records")
-        if max_held_records < 1:
-            raise ValueError("max_held_records must be at least 1, got "
-                             f"{max_held_records}")
         depth = max(depth, 2 * len(devices))
-        # feeds hold from the first batch on, so every batch in flight
-        # while they do is held
-        held = held_records = 0
         if stats is not None:
             stats.setdefault("rss_start_bytes", _rss_bytes())
-            for key in ("n_batches", "h2d_bytes", "d2h_bytes", "max_held",
-                        "max_held_records"):
+            for key in ("n_batches", "h2d_bytes", "d2h_bytes"):
                 stats.setdefault(key, 0)
             stats.setdefault("scan_s", 0.0)   # summed over workers (overlaps)
             stats.setdefault("wait_s", 0.0)   # main-thread feed-drain wait
@@ -496,6 +487,10 @@ class NativeExtractor:
 
         def span(name, batch):
             return _Span(name, batch) if tracing else _NO_SPAN
+
+        def median_from_tee(batch):
+            with span("strling.extract.median", batch):
+                self.set_median(fraglen.median(self.get_hist()[0]))
 
         slock = threading.Lock()
 
@@ -520,63 +515,42 @@ class NativeExtractor:
         scans = 0
         # (batch number, scan future or EMPTY); batch b is the engine's b-th
         inflight: deque = deque()
-        hold = None  # the open `strling.extract.hold` span
-        try:
-            with ThreadPoolExecutor(max_workers=depth) as pool:
-                for batch in itertools.count():
-                    with span("strling.extract.engine_pop", batch):
-                        rows, n_records, payload, layout, ascii_rows = \
-                            self._next_fused()
-                    if n_records > 0:
-                        if rows > 0:
-                            dev = devices[scans % len(devices)]
-                            scans += 1
-                            inflight.append((batch, pool.submit(
-                                scan_job, payload, layout, ascii_rows, rows,
-                                dev)))
-                        else:
-                            inflight.append((batch, EMPTY))
-                    done = n_records == 0 and bool(
-                        self.lib.sio_ex_done(self._e))
-                    if not done and hold_drain is not None and hold_drain():
-                        if tracing and hold is None:
-                            hold = span("strling.extract.hold", batch)
-                            hold.__enter__()
-                        held = len(inflight)
-                        held_records += n_records
-                        if held_records < max_held_records:
-                            continue
-                        on_hold_cap()
-                        hold_drain = pre_feed_hook = None
-                        hold = _end(hold)
-                    limit = 0 if done else depth - 1
-                    while len(inflight) > limit:
-                        if pre_feed_hook is not None:
-                            pre_feed_hook()
-                            pre_feed_hook = None
-                            hold = _end(hold)
-                        b, f = inflight.popleft()
-                        res = None
-                        if f is not EMPTY:
-                            tw = time.perf_counter()
-                            with span("strling.extract.scan_wait", b):
-                                res = f.result()
-                            if stats is not None:
-                                stats["wait_s"] += time.perf_counter() - tw
-                        with span("strling.extract.feed", b):
-                            self._feed(res)
-                    if done:
-                        break
-            if pre_feed_hook is not None:
-                pre_feed_hook()
-        finally:
-            _end(hold)
+        with ThreadPoolExecutor(max_workers=depth) as pool:
+            for batch in itertools.count():
+                with span("strling.extract.engine_pop", batch):
+                    rows, n_records, payload, layout, ascii_rows = \
+                        self._next_fused()
+                if n_records > 0:
+                    if rows > 0:
+                        dev = devices[scans % len(devices)]
+                        scans += 1
+                        inflight.append((batch, pool.submit(
+                            scan_job, payload, layout, ascii_rows, rows,
+                            dev)))
+                    else:
+                        inflight.append((batch, EMPTY))
+                done = n_records == 0 and bool(self.lib.sio_ex_done(self._e))
+                if self.median is None and self.hist_ready:
+                    median_from_tee(batch)
+                limit = 0 if done else depth - 1
+                while len(inflight) > limit:
+                    b, f = inflight.popleft()
+                    res = None
+                    if f is not EMPTY:
+                        tw = time.perf_counter()
+                        with span("strling.extract.scan_wait", b):
+                            res = f.result()
+                        if stats is not None:
+                            stats["wait_s"] += time.perf_counter() - tw
+                    with span("strling.extract.feed", b):
+                        self._feed(res)
+                if done:
+                    break
+        if self.median is None:
+            median_from_tee(batch)
         if sink is not None:
             sink.append(self.trace_events())
         if stats is not None:
-            stats["max_held"] = max(stats["max_held"], held)
-            stats["max_held_records"] = max(stats["max_held_records"],
-                                            held_records)
             engine = stats.setdefault("engine", {})
             for name, v in self.counters().items():
                 engine[name] = (max(engine.get(name, 0), v)

@@ -126,6 +126,11 @@ extern "C" {
                   const int32_t* n, int64_t rows);
   int sio_ex_done(void* e);
   int64_t sio_ex_n_treads(void* e);
+  int64_t sio_ex_get_treads(void* e, int32_t* tid, uint32_t* pos,
+                            uint8_t* rep6, uint16_t* flag, uint8_t* split,
+                            uint8_t* mapq, uint8_t* cnt, uint8_t* alen,
+                            char* qbuf, int64_t qcap, int64_t* qoff);
+  int sio_ex_set_median(void* e, int64_t median);
   int sio_ex_set_hist_tee(void* e, int64_t skip, int64_t n);
   int sio_ex_hist_ready(void* e);
   int sio_ex_get_hist(void* e, uint32_t* hist, int32_t* max_len);
@@ -141,7 +146,9 @@ int main(int argc, char** argv) {
   if (!h) return 1;
   const int Lmax = 160;
   const int64_t CAP = 8192;
-  void* e = sio_ex_create(h, 0.8, 40, 400, Lmax);
+  // the median pending, and set between the third and fourth feeds: the
+  // patch of the treads fed before it runs under the sanitizer
+  void* e = sio_ex_create(h, 0.8, 40, -1, Lmax);
   // hist tee: producer writes, this thread polls/reads — the exact
   // cross-thread pattern extract_native uses (fh_ready acquire gate)
   if (sio_ex_set_hist_tee(e, 100, 100000) != 0) return 4;
@@ -155,8 +162,11 @@ int main(int argc, char** argv) {
   std::vector<uint8_t> ab((size_t)CAP * Lmax);
   std::vector<int32_t> al(CAP);
   std::vector<double> ap(CAP);
-  std::vector<int32_t> z(CAP, 0);
-  int64_t total = 0;
+  // every scanned row reads as a 255-base run of A, every prefiltered one
+  // as no repeat: pairs of the two make treads whose positions take the
+  // median's term
+  std::vector<int32_t> code(CAP, 0), ulen(CAP, 1), count(CAP, 255);
+  int64_t total = 0, feeds = 0;
   for (;;) {
     int64_t nrec = 0; int32_t fb = 0;
     int64_t rows = sio_ex_next_fused(e, 4000, &nrec, payload.data(), ab.data(),
@@ -167,17 +177,37 @@ int main(int argc, char** argv) {
       if (sio_ex_get_hist(e, hist, &hmax) != 0) return 5;
       hist_read = true;
     }
-    if (nrec > 0) sio_ex_feed(e, z.data(), z.data(), z.data(), rows);
+    if (nrec > 0) {
+      if (sio_ex_feed(e, code.data(), ulen.data(), count.data(), rows) != 0)
+        return 8;
+      if (++feeds == 3 && sio_ex_set_median(e, 400) != 0) return 9;
+    }
     if (nrec == 0 && sio_ex_done(e)) break;
   }
+  if (feeds < 3 && sio_ex_set_median(e, 400) != 0) return 9;
   if (!hist_read && sio_ex_get_hist(e, hist, &hmax) != 0) return 5;
+  const int64_t nt = sio_ex_n_treads(e);
+  std::vector<int32_t> ttid(nt + 1);
+  std::vector<uint32_t> tpos(nt + 1);
+  std::vector<uint8_t> trep(6 * nt + 6), tsplit(nt + 1), tmapq(nt + 1),
+      tcnt(nt + 1), talen(nt + 1);
+  std::vector<uint16_t> tflag(nt + 1);
+  std::vector<char> qbuf(256 * nt + 16);
+  std::vector<int64_t> qoff(nt + 1);
+  if (sio_ex_get_treads(e, ttid.data(), tpos.data(), trep.data(),
+                        tflag.data(), tsplit.data(), tmapq.data(),
+                        tcnt.data(), talen.data(), qbuf.data(),
+                        (int64_t)qbuf.size(), qoff.data()) != nt)
+    return 10;
   int64_t ctr[16];
   const int64_t n_ctr = sio_ex_counters(e, ctr, 16);
+  if (n_ctr != 12) return 11;
   const int64_t n_ev = sio_ex_trace_events(e, nullptr, 0);
   std::vector<int64_t> ev((size_t)(6 * n_ev + 6));
   if (sio_ex_trace_events(e, ev.data(), n_ev) != n_ev || n_ev < 1) return 7;
-  printf("records=%ld treads=%ld counters=%ld span_events=%ld\n", (long)total,
-         (long)sio_ex_n_treads(e), (long)n_ctr, (long)n_ev);
+  printf("records=%ld treads=%ld counters=%ld span_events=%ld "
+         "fed_before_median=%ld median_patched=%ld\n", (long)total, (long)nt,
+         (long)n_ctr, (long)n_ev, (long)ctr[10], (long)ctr[11]);
   sio_ex_destroy(e);
   sio_close(h);
   // multithreaded batched Huber under the same sanitizer
@@ -314,7 +344,7 @@ for build in $BUILDS; do
 
   echo "[sanitize] $build TSAN: extract engine producer thread (pipelined fused reader)" >&2
   timeout 300 "$tsan_engine" "$BAM" > "$TMP/engine.out" 2> "$TMP/$build-tsan3.log"
-  grep -q "^records=" "$TMP/engine.out"
+  grep -q "^records=.* median_patched=[1-9]" "$TMP/engine.out"
   ASAN_OPTIONS=abort_on_error=1 UBSAN_OPTIONS=halt_on_error=1 \
     timeout 300 "$asan_engine" "$BAM" > /dev/null
   if grep -q "WARNING: ThreadSanitizer" "$TMP/$build-tsan3.log"; then

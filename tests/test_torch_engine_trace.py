@@ -22,7 +22,7 @@ from strling_tpu_torch.io.extract_native import (
     ENGINE_COUNTERS, NativeExtractor, _lib)
 from strling_tpu_torch.utils.profiling import maybe_trace
 
-from test_torch_extract import _held_bam, _pairs_bam, _str_mutate
+from test_torch_extract import _pairs_bam, _str_mutate
 
 torch.set_num_threads(1)
 CPU = [torch.device("cpu")]
@@ -117,21 +117,28 @@ def test_main_thread_waits_stay_under_the_pass_wall(pairs_bam, small_batches):
     assert 0 < stats["rss_start_bytes"] < 1 << 40
 
 
-def test_held_bytes_cover_the_held_records(tmp_path, monkeypatch):
-    """With feeds held until the cap (as test_torch_extract's F3 test
-    forces it), the engine's accounted bytes reach at least a Pending
-    record for each record held."""
-    path = _held_bam(str(tmp_path / "held.bam"))
-    monkeypatch.setattr(NativeExtractor, "run", functools.partialmethod(
-        NativeExtractor.run, max_held_records=100, depth=DEPTH))
+def test_held_bytes_stay_under_the_batches_in_flight(tmp_path, monkeypatch):
+    """The tee is ready only at the end of the stream (12,000 records, fewer
+    than it skips), and nothing waits for it: the engine's accounted bytes
+    stay under (depth + 4) batches' worth of Pending records (those in
+    flight, the ready queue's three and one to spare for the rest), where
+    holding until the median would have cost a Pending record for each of
+    the 12,000. No inflate pool: its blocks would count besides."""
+    monkeypatch.setenv("STRLING_BGZF_THREADS", "0")
+    path = _pairs_bam(str(tmp_path / "long.bam"), 6000, 100,
+                      np.random.default_rng(9), _few_repeats)
+    batch = 1000
     monkeypatch.setattr(port_extract, "NativeExtractor", functools.partial(
-        NativeExtractor, batch_records=32, rows_per_batch=8))
+        NativeExtractor, batch_records=batch, rows_per_batch=64))
+    monkeypatch.setattr(NativeExtractor, "run", functools.partialmethod(
+        NativeExtractor.run, depth=DEPTH))
     stats = {}
     _extract(path, stats)
-    held = stats["max_held_records"]
-    assert held >= 100
-    assert stats["engine"]["held_bytes_peak"] >= \
-        held * _lib().sio_ex_pending_bytes() > 0
+    engine, pending = stats["engine"], _lib().sio_ex_pending_bytes()
+    assert stats.get("max_held_records", 0) == 0  # feed.held_records_peak
+    assert 0 < engine["fed_before_median"] < 12_000
+    assert engine["held_bytes_peak"] < (DEPTH + 4) * batch * pending
+    assert (DEPTH + 4) * batch < 12_000
 
 
 def test_no_profiler_no_engine_spans(pairs_bam, tmp_path):
@@ -182,7 +189,7 @@ def test_maybe_trace_holds_the_engine_tracks_aligned(pairs_bam, small_batches,
     for e in spans:
         by_name.setdefault(e["name"], []).append(e)
     for name in ("strling.extract.engine_pop", "strling.extract.scan_wait",
-                 "strling.extract.feed", "strling.extract.hold",
+                 "strling.extract.feed", "strling.extract.median",
                  "strling.engine.produce", "strling.engine.inflate"):
         assert by_name.get(name), name
     produced = {e["args"]["batch"]: e for e in by_name["strling.engine.produce"]}

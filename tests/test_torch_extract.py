@@ -258,7 +258,7 @@ def test_small_batches_many_workers(str_bam):
 
 def _held_bam(path):
     """300 pairs, 9 in 10 not proper pairs: the fragment histogram's tee is
-    ready only at the end of the stream, so feeds hold every batch."""
+    ready only at the end of the stream."""
     rng = np.random.default_rng(21)
     recs = []
     for i in range(300):
@@ -277,42 +277,145 @@ def _held_bam(path):
     return path
 
 
-@pytest.mark.parametrize("cap", [1, 100])
-def test_hold_cap_falls_back_to_own_hist_pass(cap, tmp_path, monkeypatch):
-    """F3: few records pass the fragment histogram's predicate (9 pairs in
-    10 are not proper pairs), so the tee is ready only at the end of the
-    stream and every batch would be held. With small batches the held
-    records reach `max_held_records`; past it the median comes from
-    native_frag_hist and the bin is still the reference's."""
+def _feed_all(ne):
+    """Drive an engine by hand: pop each batch, scan it on the CPU and feed
+    it, to the end of the stream (no median set on the way)."""
+    from strling_tpu_torch.ops.kmer import scan_codes, scan_payload
+
+    while True:
+        rows, n_records, payload, layout, ascii_rows = ne._next_fused()
+        if n_records > 0:
+            res = None
+            if rows and payload is not None:
+                res = scan_payload(payload, rows, layout, CPU[0])
+            elif rows:
+                res = scan_codes(*(a[:rows] for a in ascii_rows), CPU[0])
+            ne._feed(res)
+        elif ne.lib.sio_ex_done(ne._e):
+            return
+
+
+@pytest.mark.parametrize("lands", ["when_ready", "at_drain"])
+@pytest.mark.parametrize("sizes", [(32, 8), None], ids=["32x8", "defaults"])
+def test_deferred_median_bins_equal_the_reference(sizes, lands, tmp_path,
+                                                  monkeypatch):
+    """9 pairs in 10 are not proper pairs, so the tee is ready only at the
+    end of the stream, and the engine feeds with the median pending. Where
+    the median lands when the tee is ready, small batches have fed some
+    records by then, and the default's one batch none. Where the tee reads
+    as not ready until the pass has drained, every record is fed before the
+    median and every position that takes its term is patched. The bin is
+    the reference's each time."""
     import functools
 
     from strling_tpu_torch.core import extract as port_extract
     from strling_tpu_torch.io.extract_native import NativeExtractor
 
     path = _held_bam(str(tmp_path / "held.bam"))
-    monkeypatch.setattr(NativeExtractor, "run", functools.partialmethod(
-        NativeExtractor.run, max_held_records=cap))
-    monkeypatch.setattr(port_extract, "NativeExtractor", functools.partial(
-        NativeExtractor, batch_records=32, rows_per_batch=8))
-    own_passes = []
-    real_hist = port_extract.native_frag_hist
-    monkeypatch.setattr(port_extract, "native_frag_hist",
-                        lambda *a: own_passes.append(a[1:]) or real_hist(*a))
+    if sizes:
+        monkeypatch.setattr(port_extract, "NativeExtractor", functools.partial(
+            NativeExtractor, batch_records=sizes[0], rows_per_batch=sizes[1]))
+    if lands == "at_drain":
+        monkeypatch.setattr(NativeExtractor, "hist_ready",
+                            property(lambda self: False))
     stats = {}
     bam = PortBam(path)
     tb, frag, opts = extract_native(bam, None, None, devices=CPU,
                                     stats=stats)
-    assert own_passes == [(100_000, 2_000_000)]
-    # the batch that reaches the cap is the last one held
-    assert cap <= stats["max_held_records"] < cap + 32
-    assert stats["max_held"] >= -(-cap // 32)
-    assert stats["n_batches"] > 2 * stats["max_held"]
     rtb, rfrag, ropts = ref_extract_native(Bam(path), None, None)
     np.testing.assert_array_equal(frag, rfrag)
     assert opts.median_fragment_length == ropts.median_fragment_length > 0
     got = _bin_bytes(str(tmp_path / "port.bin"), tb, frag, bam)
     want = _bin_bytes(str(tmp_path / "ref.bin"), rtb, rfrag, bam)
     assert got == want and len(tb) > 0
+    engine, n_records = stats["engine"], 600
+    if lands == "at_drain":
+        assert engine["fed_before_median"] == n_records
+        assert engine["median_patched"] > 0
+    elif sizes:
+        assert 0 < engine["fed_before_median"] < n_records
+    else:
+        assert engine["fed_before_median"] == engine["median_patched"] == 0
+
+
+def _wrap_bam(path):
+    """Pairs at positions 0-45, one mate of each a repeat: the positions
+    adjust_by gives the repeat from its mate take the median's term with
+    either sign and wrap around 2**32 (forward mates at the start of the
+    contig with no median; reverse ones with a median past ~170). Every
+    fifth mate carries a 20-base soft clip, where the term is dropped."""
+    rng = np.random.default_rng(8)
+    bases = np.array(list("ACGT"))
+    recs = []
+    for i in range(60):
+        pos = i % 46
+        mpos = pos + i % 7
+        rand = "".join(bases[rng.integers(0, 4, 100)])
+        rep = (["CAG", "AT", "AAGGG", "TTTA"][i % 4] * 40)[:100]
+        s1, s2 = (rep, rand) if i % 2 else (rand, rep)
+        f1, f2 = ((99, 147), (97, 145), (163, 83), (65, 129))[i % 4]
+        q1 = 10 if i % 4 == 3 and i % 2 else 60
+        c2 = "20S80M" if i % 5 == 0 else "100M"
+        recs.append(BamRecord(f"w{i}", f1, 0, pos, q1, "100M", 0, mpos,
+                              mpos - pos + 100, s1))
+        recs.append(BamRecord(f"w{i}", f2, 0, mpos, 60, c2, 0, pos,
+                              pos - mpos - 100, s2))
+    recs.sort(key=lambda r: r.pos)
+    write_bam(path, HEADER, TARGETS, recs)
+    return path
+
+
+@pytest.mark.parametrize("median", [0, 257, 4095])
+def test_median_set_after_the_drain_equals_median_at_creation(median,
+                                                              tmp_path):
+    """An engine fed to the end with its median pending, then given it,
+    reads back the treads, byte for byte and in the same order, of an engine
+    given the median at creation and of the reference's, wrapped positions
+    included."""
+    from strling_tpu.io.extract_native import NativeExtractor as RefNE
+    from strling_tpu_torch.io.extract_native import NativeExtractor
+
+    path = _wrap_bam(str(tmp_path / "wrap.bam"))
+    known = NativeExtractor(PortBam(path), 0.8, 40, median)
+    want = known.run(CPU)
+    ref = RefNE(Bam(path), 0.8, 40, median).run(buckets=(256,))
+    assert want.data.tobytes() == ref.data.tobytes()
+    assert (want.data["position"] >= 2 ** 31).any()
+    late = NativeExtractor(PortBam(path), 0.8, 40, None, batch_records=16,
+                           rows_per_batch=8)
+    _feed_all(late)
+    late.set_median(median)
+    got = late.treads()
+    assert got.data.tobytes() == want.data.tobytes()
+    assert got.qnames == want.qnames and len(got) > 0
+    for a, b in zip(late.emission_keys(), known.emission_keys()):
+        np.testing.assert_array_equal(a, b)
+    counts = late.counters()
+    assert counts["fed_before_median"] == late.nreads == 120
+    assert known.counters()["fed_before_median"] == 0
+    assert (counts["median_patched"] > 0) == (median > 0)
+
+
+def test_treads_refused_while_the_median_is_pending(tmp_path):
+    """Positions lack the median's term until it is set: the treads and
+    their emission keys are refused until then, and the median is set
+    once."""
+    from strling_tpu_torch.io.extract_native import NativeExtractor
+
+    path = _wrap_bam(str(tmp_path / "wrap.bam"))
+    ne = NativeExtractor(PortBam(path), 0.8, 40, None)
+    _feed_all(ne)
+    with pytest.raises(IOError, match="median is pending"):
+        ne.treads()
+    with pytest.raises(RuntimeError, match="median is pending"):
+        ne.emission_keys()
+    ne.set_median(300)
+    assert len(ne.treads()) > 0 and ne.median == 300
+    with pytest.raises(RuntimeError, match="set once"):
+        ne.set_median(300)
+    known = NativeExtractor(PortBam(path), 0.8, 40, 300)
+    with pytest.raises(RuntimeError, match="set once"):
+        known.set_median(300)
 
 
 def test_stats_attribution(str_bam):
