@@ -65,26 +65,44 @@ def run_call(bam_path: str, bin_path: str, fasta: str | None = None,
              stats: dict | None = None):
     """call_main (call.nim:50-303). `debug` also writes the per-read and
     per-span evidence files the reference emits in -d:debug builds
-    (call.nim:148-157,257-261). `stats`, when given, records per-stage wall
-    seconds (setup/cluster/collect/genotype/finish) for bench attribution."""
-    import time as _time
+    (call.nim:148-157,257-261). The phases (`PHASES`: setup, replay,
+    collect, genotype, oe_barrier, write) are `strling.call.<phase>` spans
+    under a profiler; `stats`, when given, gets their seconds (`span_s`),
+    the records the histogram and the collect decoded (`hist_records`,
+    `collect_records`: the native collector's), the work items and the
+    calls written (`work_items`, `called`)."""
+    from strling_tpu_torch.utils.profiling import PhaseClock
 
-    _marks = [_time.perf_counter()]
+    clock = PhaseClock(stats, "strling.call.", PHASES)
+    try:
+        _run_call(clock, bam_path, bin_path, fasta, min_support, min_clip,
+                  min_clip_total, min_mapq, loci, bounds_path, output_prefix,
+                  verbose, debug)
+    finally:
+        clock.switch(None)
 
-    def _mark(name):
-        _marks.append(_time.perf_counter())
-        if stats is not None:
-            stats[name] = stats.get(name, 0.0) + _marks[-1] - _marks[-2]
 
+#: the phases of run_call, in order (one process: no broadcast or gather)
+PHASES = ("setup", "replay", "collect", "genotype", "oe_barrier", "write")
+
+
+def _run_call(clock, bam_path, bin_path, fasta, min_support, min_clip,
+              min_clip_total, min_mapq, loci, bounds_path, output_prefix,
+              verbose, debug):
+    st = clock.stats
     if loci and not os.path.exists(loci):
         raise SystemExit("couldn't open loci file")
     if bounds_path and not os.path.exists(bounds_path):
         raise SystemExit("couldn't open bounds file")
 
+    clock.switch("setup")
     bam = Bam(bam_path, fasta=fasta)
     from strling_tpu_torch.io.extract_native import native_frag_hist
 
-    frag_dist = native_frag_hist(bam)  # byte-equal to the Python pass
+    hist_stats: dict = {}
+    # byte-equal to the Python pass
+    frag_dist = native_frag_hist(bam, stats=hist_stats)
+    st["hist_records"] = hist_stats["records"]
     frag_median = fraglen.median(frag_dist)
     if verbose:
         print(f"Calculated median fragment length:{frag_median}", file=sys.stderr)
@@ -99,7 +117,7 @@ def run_call(bam_path: str, bin_path: str, fasta: str | None = None,
     extracted = read_bin(bin_path)
     assert same_targets(extracted.targets, bam.targets)
     groups = TreadGroups.from_batch(extracted.reads)
-    _mark("setup_s")  # frag-hist pass + bin read + tread grouping
+    clock.switch("replay")  # the locus assignment, then the clustering
 
     gt_fh = open(output_prefix + "-genotype.txt", "w")
     bounds_fh = open(output_prefix + "-bounds.txt", "w")
@@ -201,9 +219,9 @@ def run_call(bam_path: str, bin_path: str, fasta: str | None = None,
             print(f"large bounds:{bound} skipping", file=sys.stderr)
             continue
         work_a.append((bound, str_reads, str_qnames))
-    _mark("assign_s")
+    clock.switch("collect")
     span_a = _spans_for(work_a)
-    _mark("collect_s")
+    clock.switch("genotype")
     for i, (bound, str_reads, str_qnames) in enumerate(work_a):
         got = _genotype_one(span_a[i], bound, str_reads, str_qnames)
         if got is None:
@@ -213,7 +231,7 @@ def run_call(bam_path: str, bin_path: str, fasta: str | None = None,
         genotypes_by_repeat.setdefault(canon, []).append(gt)
         bounds_fh.write(bound.tostring(opts.targets) + "\t" + str(med_depth) + "\n")
         _debug_write(bound, spans, str_reads, str_qnames, bound.id(opts.targets))
-    _mark("genotype_s")
+    clock.switch("replay")
 
     # PASS B — novel clusters (call.nim:221-262): clustering consumes the
     # remaining treads (independent of support collection), then the same
@@ -249,9 +267,9 @@ def run_call(bam_path: str, bin_path: str, fasta: str | None = None,
             max_clip_dist, names,
         ):
             work_b.append((b, Cluster(reads=rv, qnames=qv)))
-    _mark("cluster_s")
+    clock.switch("collect")
     span_b = _spans_for(work_b)
-    _mark("collect_s")
+    clock.switch("genotype")
     ci = 0
     for i, (b, c) in enumerate(work_b):
         got = _genotype_one(span_b[i], b, c.reads, c.qnames)
@@ -263,9 +281,13 @@ def run_call(bam_path: str, bin_path: str, fasta: str | None = None,
         bounds_fh.write(b.tostring(opts.targets) + "\t" + str(med_depth) + "\n")
         _debug_write(b, spans, c.reads, c.qnames, ci)
         ci += 1
-    _mark("genotype_s")
-
+    st["work_items"] = len(work_a) + len(work_b)
+    st["called"] = sum(len(v) for v in genotypes_by_repeat.values())
+    st["collect_records"] = sum(getattr(x, "n_records", 0)
+                                for x in (*span_a.values(), *span_b.values()))
+    clock.switch("oe_barrier")
     add_percentile(genotypes_by_repeat)
+    clock.switch("write")
 
     # unique-large-expansion refinement (call.nim:268-277; dead in practice —
     # see genotyper.genotype's is_large note) then write genotypes
@@ -287,7 +309,6 @@ def run_call(bam_path: str, bin_path: str, fasta: str | None = None,
     gt_fh.close()
     bounds_fh.close()
     unplaced_fh.close()
-    _mark("finish_s")  # percentile barrier + refinement + genotype writes
     if debug:
         span_fh.close()
         reads_fh.close()

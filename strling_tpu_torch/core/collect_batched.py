@@ -60,6 +60,7 @@ class LocusSupport:
     span_ind: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
     med_depth: int = -1
     expected: np.float32 = np.float32(0)
+    n_records: int = 0          # records the native query decoded
 
 
 def _f32_seq_sum(vals: np.ndarray) -> np.float32:
@@ -436,7 +437,7 @@ def _bind_collect(lib):
             C.c_char_p, C.c_int64, P(np.float32), C.c_int64, C.c_int32,
             C.c_int32, P(np.int32), P(np.int32), P(np.int32), P(np.int32),
             P(np.float32), C.c_int64, P(np.int64), P(np.uint8), P(np.int32),
-            C.c_int32,
+            C.c_int32, P(np.int64),
         ]
         lib.sio_collect_many._bound = True
 
@@ -462,6 +463,7 @@ def _native_collect_chunk(bam_path, fasta, idxs, bounds_list, window, cd,
     n_frag = np.zeros(n, np.int32)
     med = np.zeros(n, np.int32)
     expected = np.zeros(n, np.float32)
+    n_records = np.zeros(n, np.int64)
     span_cap = max(4096, 64 * n)
     while True:
         span_off = np.zeros(n + 1, np.int64)
@@ -471,6 +473,7 @@ def _native_collect_chunk(bam_path, fasta, idxs, bounds_list, window, cd,
             bam._h, n, ltid, lleft, lright, lrep, window, cd, len(cd),
             min_mapq, max_size, n_support, n_span, n_frag, med, expected,
             span_cap, span_off, span_rc, span_ind, 1 if with_rc else 0,
+            n_records,
         )
         if rc == -2:
             span_cap *= 4
@@ -487,6 +490,7 @@ def _native_collect_chunk(bam_path, fasta, idxs, bounds_list, window, cd,
             span_rc=span_rc[lo:hi].astype(np.int64),
             span_ind=span_ind[lo:hi].astype(np.int64),
             med_depth=int(med[j]), expected=np.float32(expected[j]),
+            n_records=int(n_records[j]),
         )
     bam.close()
     return out

@@ -97,7 +97,8 @@ extern "C" {
 
 // Returns 0 on success, -1 on read error, -2 if span_cap was too small
 // (caller re-invokes with a bigger buffer). All output arrays are
-// caller-allocated; span_off has n_loci+1 entries.
+// caller-allocated; span_off has n_loci+1 entries. out_n_records[i] is the
+// number of records locus i's query decoded, before any filter.
 int64_t sio_collect_many(
     void* vh, int64_t n_loci, const int32_t* ltid, const int64_t* lleft,
     const int64_t* lright, const char* lrep /*8 bytes per locus, NUL-pad*/,
@@ -105,7 +106,7 @@ int64_t sio_collect_many(
     int32_t max_size, int32_t* out_n_support, int32_t* out_n_span_reads,
     int32_t* out_n_frag, int32_t* out_med_depth, float* out_expected,
     int64_t span_cap, int64_t* span_off, uint8_t* out_span_rc,
-    int32_t* out_span_ind, int32_t want_rc) {
+    int32_t* out_span_ind, int32_t want_rc, int64_t* out_n_records) {
   auto* h = (sio::Handle*)vh;
   Reader* rd = h->rd;
 
@@ -142,7 +143,9 @@ int64_t sio_collect_many(
 
     if (!rd->begin(1, ltid[li], std::max<int64_t>(0, wl), wr)) return -1;
     int rc;
+    out_n_records[li] = 0;
     while ((rc = rd->next(&r)) == 1) {
+      out_n_records[li]++;
       if (r.flag & SKIP_FLAGS) continue;
       if (r.mapq < min_mapq) continue;
       const int64_t start = r.pos;

@@ -1595,7 +1595,8 @@ int64_t sio_genome_prefilter(const uint8_t* seq, int64_t L, int64_t window,
 }
 
 // Native fragment-length histogram pre-pass (utils.nim:86-111).
-// Also reports the max read length seen (for adaptive transfer width).
+// Also reports the max read length seen (for adaptive transfer width), and
+// returns the number of records it decoded.
 // test hook: the packed-nibble dimer bound, SIMD (force_scalar=0, when
 // compiled in) vs the scalar reference (force_scalar=1) — fuzzed against
 // each other in tests/test_extract_native.py
@@ -1604,8 +1605,8 @@ int sio_max_dimer_nib(const uint8_t* seq4, int len, int force_scalar) {
   return Engine::max_dimer_count_nib(seq4, len);
 }
 
-int sio_frag_hist(void* bam_handle, int64_t skip_reads, int64_t n_reads,
-                  uint32_t* hist /*4096*/, int32_t* max_read_len) {
+int64_t sio_frag_hist(void* bam_handle, int64_t skip_reads, int64_t n_reads,
+                      uint32_t* hist /*4096*/, int32_t* max_read_len) {
   auto* h = (sio::Handle*)bam_handle;
   Reader* rd = h->rd;
   rd->begin(0, -1, 0, 0);
@@ -1643,7 +1644,7 @@ int sio_frag_hist(void* bam_handle, int64_t skip_reads, int64_t n_reads,
             "there were not enough\n");
     for (int32_t v : skipped) hist[v]++;
   }
-  return 0;
+  return i + 1;
 }
 
 }  // extern "C"

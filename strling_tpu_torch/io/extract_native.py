@@ -90,6 +90,7 @@ def _bind(lib):
         P(np.uint8), P(np.uint8), P(np.uint8), P(np.uint8), C.c_char_p,
         C.c_int64, P(np.int64),
     ]
+    lib.sio_frag_hist.restype = C.c_int64
     lib.sio_frag_hist.argtypes = [
         C.c_void_p, C.c_int64, C.c_int64, P(np.uint32), C.POINTER(C.c_int32),
     ]
@@ -183,13 +184,19 @@ def peek_max_len(bam: Bam, n_records: int = 10_000) -> int:
 
 
 def native_frag_hist(bam: Bam, skip_reads: int = TEE_SKIP,
-                     n_reads: int = TEE_TAKE, return_max_len: bool = False):
+                     n_reads: int = TEE_TAKE, return_max_len: bool = False,
+                     stats: dict | None = None):
     """The fragment-length histogram (uint32[4096]) of `n_reads` records
     that pass its predicate, after skipping `skip_reads`; with
-    `return_max_len`, (histogram, the longest read the pass saw)."""
+    `return_max_len`, (histogram, the longest read the pass saw).
+    `stats`, when given, gets the number of records the pass decoded
+    (`"records"`)."""
     hist = np.zeros(4096, np.uint32)
     maxlen = C.c_int32(0)
-    _lib().sio_frag_hist(bam._h, skip_reads, n_reads, hist, C.byref(maxlen))
+    n = _lib().sio_frag_hist(bam._h, skip_reads, n_reads, hist,
+                             C.byref(maxlen))
+    if stats is not None:
+        stats["records"] = int(n)
     if return_max_len:
         return hist, int(maxlen.value)
     return hist

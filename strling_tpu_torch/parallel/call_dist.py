@@ -22,10 +22,17 @@ calls before output (SURVEY.md §3.2): the spanning O/E percentile ranking
 - Call records are exchanged via a gather and re-assembled in the exact
   single-process order, so `-genotype.txt`, `-bounds.txt` and
   `-unplaced.txt` are byte-identical to `run_call`'s, including line order.
+
+A pass runs in phases, each a `strling.call.<phase>` span under a profiler
+(`call --distributed --profile`: one trace a rank) and its seconds in the
+optional `stats` (`PHASES`); `stats` also counts the rank's shard, the
+records its collect and its histogram decoded, the bytes it broadcast and
+gathered, and its seconds blocked in collectives.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import sys
@@ -48,9 +55,18 @@ from strling_tpu_torch.ops.encode import canonical_repeat
 from strling_tpu_torch.parallel.mesh import broadcast_blob, gather_blobs, group_device
 from strling_tpu_torch.utils import fraglen
 from strling_tpu_torch.utils.options import Options
+from strling_tpu_torch.utils.profiling import PhaseClock
+
+#: the phases of a pass, in order: rank 0's histogram and bin read (and the
+#: BAM's open on every rank), the broadcast of both, the replay of the locus
+#: assignment and the clustering, this shard's collect and genotype, the O/E
+#: barrier, the gather of the calls, rank 0's writes and the last barrier
+PHASES = ("setup", "broadcast", "replay", "collect", "genotype",
+          "oe_barrier", "gather", "write")
 
 
-def rank_oes_on_mesh(oes: np.ndarray, device: torch.device) -> np.ndarray:
+def rank_oes_on_mesh(oes: np.ndarray, device: torch.device,
+                     blocked=contextlib.nullcontext) -> np.ndarray:
     """Global O/E percentiles of this rank's f32 ratios among every rank's.
 
     The row width (the longest rank's count, at least 1) is agreed with an
@@ -59,20 +75,25 @@ def rank_oes_on_mesh(oes: np.ndarray, device: torch.device) -> np.ndarray:
     ratios, rank = searchsorted(sorted, v, left), pct = f32(rank) /
     f32(n_total - 1) — exactly core.call.add_percentile (call.nim:38-47);
     n_total == 1 gives 0/0 = nan. numpy sorts NaN last, so a NaN ratio's
-    rank is the number of non-NaN ratios; it is counted, not searched."""
+    rank is the number of non-NaN ratios; it is counted, not searched.
+    `blocked` is entered around the collectives."""
     gdev = group_device()
     oes = np.asarray(oes, np.float32)
     world = dist.get_world_size()
-    n_max = torch.tensor([max(1, len(oes))], dtype=torch.int64, device=gdev)
-    dist.all_reduce(n_max, op=dist.ReduceOp.MAX)
-    row = np.full(int(n_max.item()), np.inf, np.float32)
+    with blocked():
+        n_max = torch.tensor([max(1, len(oes))], dtype=torch.int64,
+                             device=gdev)
+        dist.all_reduce(n_max, op=dist.ReduceOp.MAX)
+        width = int(n_max.item())
+    row = np.full(width, np.inf, np.float32)
     row[:len(oes)] = oes
     mine = torch.from_numpy(row).to(gdev)
     gathered = torch.empty(world * len(row), dtype=torch.float32, device=gdev)
-    dist.all_gather(list(gathered.chunk(world)), mine)
-    count = torch.tensor([len(oes)], dtype=torch.int64, device=gdev)
-    dist.all_reduce(count)
-    n_total = int(count.item())
+    with blocked():
+        dist.all_gather(list(gathered.chunk(world)), mine)
+        count = torch.tensor([len(oes)], dtype=torch.int64, device=gdev)
+        dist.all_reduce(count)
+        n_total = int(count.item())
     allv = gathered.to(device)
     v = mine.to(device)[:len(oes)]
     nan = torch.isnan(allv)
@@ -92,32 +113,64 @@ def run_call_dist(bam_path: str, bin_path: str, fasta: str | None = None,
                   min_clip_total: int = 0, min_mapq: int = 40,
                   loci: str | None = None, bounds_path: str | None = None,
                   output_prefix: str = "strling", verbose: bool = False,
-                  device: torch.device | None = None):
+                  device: torch.device | None = None,
+                  stats: dict | None = None):
     """Distributed call_main (call.nim:50-303). Every rank of the default
     group calls this with the same arguments and its own `device` (where
     the O/E barrier sorts; default: the group's device); per-locus
     spanners/genotype work is sharded, the two global barriers run as
     collectives, and rank 0 writes files that are byte-identical to
     single-process `run_call`'s. Returns the genotype lines (identical on
-    every rank)."""
+    every rank).
+
+    `stats`, when given, is filled with this rank's counters of the pass:
+    `span_s` (seconds in each of `PHASES`), `collective_wait_s` (blocked in
+    broadcast, all_reduce, all_gather and barrier), `shard_loci` (work
+    items in its shard), `work_items` and `called` (all ranks' work items,
+    and the calls written), `collect_records` (records its collect's
+    queries decoded), `hist_records` (records the histogram decoded: rank 0
+    only), `broadcast_bytes`, `gathered_bytes`, `rank` and `world`."""
+    clock = PhaseClock(stats, "strling.call.", PHASES)
+    try:
+        return _run_call_dist(clock, bam_path, bin_path, fasta, min_support,
+                              min_clip, min_clip_total, min_mapq, loci,
+                              bounds_path, output_prefix, verbose, device)
+    finally:
+        clock.switch(None)
+
+
+def _run_call_dist(clock, bam_path, bin_path, fasta, min_support, min_clip,
+                   min_clip_total, min_mapq, loci, bounds_path,
+                   output_prefix, verbose, device):
     rank = dist.get_rank()
     world = dist.get_world_size()
     device = device or group_device()
+    st = clock.stats
+    st.update(rank=rank, world=world, hist_records=0)
 
     if loci and not os.path.exists(loci):
         raise SystemExit("couldn't open loci file")
     if bounds_path and not os.path.exists(bounds_path):
         raise SystemExit("couldn't open bounds file")
 
+    clock.switch("setup")
     bam = Bam(bam_path, fasta=fasta)
     setup = None
     if rank == 0:
         extracted = read_bin(bin_path)
         assert same_targets(extracted.targets, bam.targets)
-        setup = pickle.dumps((native_frag_hist(bam), extracted.reads.data,
-                              extracted.reads.qnames),
+        hist_stats: dict = {}
+        setup = pickle.dumps((native_frag_hist(bam, stats=hist_stats),
+                              extracted.reads.data, extracted.reads.qnames),
                              protocol=pickle.HIGHEST_PROTOCOL)
-    frag_dist, data, qnames = pickle.loads(broadcast_blob(setup))
+        st["hist_records"] = hist_stats["records"]
+    clock.switch("broadcast")
+    with clock.blocked():
+        blob = broadcast_blob(setup)
+    st["broadcast_bytes"] = len(blob)
+    frag_dist, data, qnames = pickle.loads(blob)
+    del blob, setup
+    clock.switch("replay")
     frag_median = fraglen.median(frag_dist)
     opts = Options(
         median_fragment_length=frag_median, min_clip=min_clip,
@@ -191,13 +244,19 @@ def run_call_dist(bam_path: str, bin_path: str, fasta: str | None = None,
             if mine():
                 my_work.append((wi, b, rv, qv))
 
+    st["work_items"] = work_i
+    st["shard_loci"] = len(my_work)
+
     # batched support collection over this shard's loci, then genotype
+    clock.switch("collect")
     my_bounds = [w[1] for w in my_work]
     ls_map = collect_many_native(bam, my_bounds, opts.window, frag_dist,
                                  opts.min_mapq)
     if ls_map is None:
         ls_map = collect_many(bam, my_bounds, opts.window, frag_dist,
                               opts.min_mapq, with_rc=False)
+    st["collect_records"] = sum(ls.n_records for ls in ls_map.values())
+    clock.switch("genotype")
     for j, (wi, b, rv, qv) in enumerate(my_work):
         ls = ls_map[j]
         if ls.n_support > 5_000 or ls.med_depth == -1:
@@ -208,17 +267,25 @@ def run_call_dist(bam_path: str, bin_path: str, fasta: str | None = None,
                          str(ls.med_depth), canonical_repeat(b.repeat)))
 
     # --- barrier 1: global O/E percentile on the devices (call.nim:264) -----
+    clock.switch("oe_barrier")
     pct = rank_oes_on_mesh(
-        np.array([oe_ratio(it[1]) for it in my_calls], np.float32), device)
+        np.array([oe_ratio(it[1]) for it in my_calls], np.float32), device,
+        clock.blocked)
     for r, it in enumerate(my_calls):
         it[1].spanning_fragments_oe_percentile = np.float32(pct[r])
 
     # --- gather Call records; rebuild the single-process order --------------
+    clock.switch("gather")
     blob = pickle.dumps(my_calls, protocol=pickle.HIGHEST_PROTOCOL)
+    with clock.blocked():
+        blobs = gather_blobs(blob)
+    st["gathered_bytes"] = sum(len(b) for b in blobs)
     all_items: list[tuple[int, object, str, str]] = []
-    for b in gather_blobs(blob):
+    for b in blobs:
         all_items.extend(pickle.loads(b))
+    del blobs
     all_items.sort(key=lambda t: t[0])
+    st["called"] = len(all_items)
 
     # genotypes_by_repeat insertion order == call order (canon first seen)
     genotypes_by_repeat: dict[str, list] = {}
@@ -243,6 +310,7 @@ def run_call_dist(bam_path: str, bin_path: str, fasta: str | None = None,
         for gt in genotypes:
             gt_lines.append(gt.tostring())
 
+    clock.switch("write")
     if rank == 0:
         with open(output_prefix + "-genotype.txt", "w") as fh:
             fh.write(GT_HEADER + "\n")
@@ -258,5 +326,6 @@ def run_call_dist(bam_path: str, bin_path: str, fasta: str | None = None,
         if verbose:
             print(f"wrote genotypes to {output_prefix}-genotype.txt",
                   file=sys.stderr)
-    dist.barrier()  # the files exist on every rank's return
+    with clock.blocked():
+        dist.barrier()  # the files exist on every rank's return
     return gt_lines

@@ -24,6 +24,7 @@ the rank's card under NCCL, the CPU under Gloo); the rank's own device
 from __future__ import annotations
 
 import atexit
+import datetime
 import os
 import sys
 import weakref
@@ -91,8 +92,8 @@ def group_device() -> torch.device:
 
 
 def init_distributed(device: str = "cuda", init_method: str | None = None,
-                     rank: int | None = None,
-                     world_size: int | None = None) -> torch.device:
+                     rank: int | None = None, world_size: int | None = None,
+                     timeout: float | None = None) -> torch.device:
     """Start the default process group (once per process) and return this
     rank's device. `device` is "cuda" (needs a card) or "cpu".
 
@@ -101,7 +102,8 @@ def init_distributed(device: str = "cuda", init_method: str | None = None,
     MASTER_ADDR/MASTER_PORT, read through `init_method` "env://" when none
     is given). Without either the process runs as a world of one on an
     in-memory store, as the JAX package's --distributed does with one
-    process."""
+    process. `timeout` (seconds) bounds the group's collectives and its
+    rendezvous; None keeps torch.distributed's default."""
     global _started
     if device not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
@@ -130,12 +132,14 @@ def init_distributed(device: str = "cuda", init_method: str | None = None,
         torch.cuda.set_device(dev)
     else:
         dev = torch.device("cpu")
+    kw = {} if timeout is None else {"timeout": datetime.timedelta(
+        seconds=timeout)}
     if init_method is None:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
+                                world_size=1, **kw)
     else:
         dist.init_process_group(backend, init_method=init_method, rank=rank,
-                                world_size=world_size)
+                                world_size=world_size, **kw)
     _started = (weakref.ref(dist.group.WORLD), device)
     # a group left to the interpreter's exit can abort the process while its
     # threads are still joinable (and NCCL warns of leaked resources)

@@ -138,3 +138,41 @@ def _merge_engine_spans(path: str, reads: list[int], sink: list) -> None:
                        "tid": tid, "args": {"name": track}})
     with open(path, "w") as fh:
         json.dump(trace, fh)
+
+
+class PhaseClock:
+    """The phases of one run of a stage, back to back: each one a
+    `<prefix><phase>` span (`record_function`, seen by any running
+    profiler) and its wall seconds in `stats["span_s"][phase]`. `blocked()`
+    adds the seconds spent inside it, in collectives, to
+    `stats["collective_wait_s"]`. Every phase named at creation reads 0.0
+    until it runs; `switch(None)` ends the open phase."""
+
+    def __init__(self, stats: dict | None, prefix: str, phases=()):
+        self.stats = stats if stats is not None else {}
+        self.stats["span_s"] = dict.fromkeys(phases, 0.0)
+        self.stats["collective_wait_s"] = 0.0
+        self.prefix = prefix
+        self._open = None
+
+    def switch(self, phase: str | None):
+        """End the open phase, then start `phase` (None: none)."""
+        now = time.perf_counter()
+        if self._open is not None:
+            name, t0, span = self._open
+            span.__exit__(None, None, None)
+            spans = self.stats["span_s"]
+            spans[name] = spans.get(name, 0.0) + now - t0
+            self._open = None
+        if phase is not None:
+            span = torch.profiler.record_function(self.prefix + phase)
+            span.__enter__()
+            self._open = (phase, time.perf_counter(), span)
+
+    @contextlib.contextmanager
+    def blocked(self):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.stats["collective_wait_s"] += time.perf_counter() - t0
