@@ -455,9 +455,14 @@ class NativeExtractor:
         """Pipelined loop. Each batch comes out of the engine in the fused
         wire layout; `depth` worker threads scan batches (round-robin over
         `devices`) while the main thread decodes and pairs the next one.
-        Feeds are drained in submission order, so the output is identical
-        for any device list. Feeds start with the first batch. Where the
-        median is pending, it is set from the engine's tee after the first
+        Feeds go in submission order, so the output is identical for any
+        device list. After each pop the loop feeds, oldest first, every
+        batch whose scan is back (or that had no scan rows), and stops at
+        the first still scanning; it waits on a scan only while more than
+        `depth - 1` batches are queued unfed, and at the drain. So fast
+        scans keep about one batch unfed in the engine, slow ones up to
+        `depth - 1`. Feeds start with the first batch. Where the median is
+        pending, it is set from the engine's tee after the first
         pop that finds the tee ready, or once the pass has drained at the
         latest (the tee freezes at the end of the whole-file stream), and
         the engine adds its term to the treads fed before it.
@@ -466,8 +471,10 @@ class NativeExtractor:
         h2d/d2h bytes, summed in-flight scan seconds (overlapped across
         workers) and total feed-wait seconds on the main thread; `engine`,
         the engine's counters by name (summed over runs, `PEAK_COUNTERS` by
-        their largest); and `rss_start_bytes`, the process's resident set
-        as the first run's loop starts.
+        their largest); `rss_start_bytes`, the process's resident set as
+        the first run's loop starts; and `unfed_batches_peak`, the most
+        batches queued unfed in the engine just after a pop (the largest
+        over runs).
 
         While a torch profiler runs, the loop's spans go in its trace:
         `strling.extract.engine_pop` (waiting on the engine's next batch),
@@ -486,6 +493,7 @@ class NativeExtractor:
                 stats.setdefault(key, 0)
             stats.setdefault("scan_s", 0.0)   # summed over workers (overlaps)
             stats.setdefault("wait_s", 0.0)   # main-thread feed-drain wait
+            stats.setdefault("unfed_batches_peak", 0)
         tracing = torch._C._autograd._profiler_enabled()
         sink = engine_span_sink() if tracing else None
         if sink is not None and self.lib.sio_ex_set_trace(self._e, 1) != 0:
@@ -536,11 +544,18 @@ class NativeExtractor:
                             dev)))
                     else:
                         inflight.append((batch, EMPTY))
+                if stats is not None:
+                    stats["unfed_batches_peak"] = max(
+                        stats["unfed_batches_peak"], len(inflight))
                 done = n_records == 0 and bool(self.lib.sio_ex_done(self._e))
                 if self.median is None and self.hist_ready:
                     median_from_tee(batch)
                 limit = 0 if done else depth - 1
-                while len(inflight) > limit:
+                # oldest first: every scan that is back, then block on the
+                # head only while more than `limit` batches wait unfed
+                while inflight and (len(inflight) > limit
+                                    or inflight[0][1] is EMPTY
+                                    or inflight[0][1].done()):
                     b, f = inflight.popleft()
                     res = None
                     if f is not EMPTY:

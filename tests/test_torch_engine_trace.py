@@ -141,6 +141,52 @@ def test_held_bytes_stay_under_the_batches_in_flight(tmp_path, monkeypatch):
     assert (DEPTH + 4) * batch < 12_000
 
 
+def test_batches_are_fed_as_their_scans_come_back(tmp_path, monkeypatch):
+    """With 16 workers the loop could queue 15 batches unfed before it
+    waits on a scan; it feeds each one as soon as its scan is back, so at
+    most two wait unfed after a pop (the one popped and one still
+    scanning), and the engine's accounted bytes stay under six batches'
+    Pending records: one queued, one just popped, the ready queue's three
+    and one to spare. On the card a scan is back within a millisecond,
+    long before the producer's next batch, but the plain scan on the CPU is
+    slower than the producer: so here each pop first waits until every
+    scan submitted before it is back."""
+    from concurrent import futures
+
+    from strling_tpu_torch.io import extract_native as port_ne
+
+    monkeypatch.setenv("STRLING_BGZF_THREADS", "0")
+    path = _pairs_bam(str(tmp_path / "long.bam"), 6000, 100,
+                      np.random.default_rng(9), _few_repeats)
+    batch, depth = 1000, 16
+    submitted = []
+
+    class Pool(futures.ThreadPoolExecutor):
+        def submit(self, *args, **kwargs):
+            submitted.append(super().submit(*args, **kwargs))
+            return submitted[-1]
+
+    pop = NativeExtractor._next_fused
+
+    def pop_after_the_scans(self):
+        futures.wait(submitted)
+        return pop(self)
+
+    monkeypatch.setattr(port_ne, "ThreadPoolExecutor", Pool)
+    monkeypatch.setattr(NativeExtractor, "_next_fused", pop_after_the_scans)
+    monkeypatch.setattr(port_extract, "NativeExtractor", functools.partial(
+        NativeExtractor, batch_records=batch, rows_per_batch=64))
+    monkeypatch.setattr(NativeExtractor, "run", functools.partialmethod(
+        NativeExtractor.run, depth=depth))
+    stats = {}
+    _extract(path, stats)
+    engine, pending = stats["engine"], _lib().sio_ex_pending_bytes()
+    assert len(submitted) == stats["n_batches"] >= 8
+    assert 1 <= stats["unfed_batches_peak"] <= 2
+    assert engine["held_bytes_peak"] < 6 * batch * pending
+    assert (depth - 1) * batch >= 12_000
+
+
 def test_no_profiler_no_engine_spans(pairs_bam, tmp_path):
     """No profiler: the engine keeps no span buffer. A profiler that no
     trace collects the engine's spans for (the benchmark's own): the feed

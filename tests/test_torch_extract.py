@@ -6,7 +6,10 @@ through the plain PyTorch twin) must write the same bin files as
 port's bins must reproduce tests/golden/.
 """
 
+import itertools
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -254,6 +257,80 @@ def test_small_batches_many_workers(str_bam):
     assert n_batches >= 8
     assert stats["n_batches"] == n_batches
     assert stats["d2h_bytes"] == 12 * n_rows
+
+
+@pytest.mark.parametrize("at_creation", [True, False],
+                         ids=["median_given", "median_pending"])
+def test_scans_back_out_of_order_feed_in_order(at_creation, tmp_path,
+                                               monkeypatch):
+    """Each scan first sleeps a seeded 0-5 ms in its worker, and every third
+    waits for the next one, so scans come back out of order over three CPU
+    devices and 16 workers: the loop feeds each batch only after every
+    older one, and the treads equal the reference's field by field, with
+    the median given at creation or set from the tee."""
+    import random
+
+    from strling_tpu.io.extract_native import NativeExtractor as RefNE
+    from strling_tpu.io.extract_native import native_frag_hist
+    from strling_tpu.utils import fraglen
+    from strling_tpu_torch.io import extract_native as port_ne
+
+    def mutate(i, s1, s2):
+        # repeats in a third of the stretch: some batches have no scan rows
+        return _str_mutate(i, s1, s2) if i % 24 < 8 else (s1, s2)
+
+    path = _pairs_bam(str(tmp_path / "pairs.bam"), 300, 60,
+                      np.random.default_rng(4), mutate)
+    med = fraglen.median(native_frag_hist(Bam(path)))
+    want = RefNE(Bam(path), 0.8, 40, med, batch_records=16).run(
+        buckets=(256,))
+    delays = random.Random(15)
+    calls = itertools.count()
+    back, one_scan = threading.Condition(), threading.Lock()
+    finished, done_calls = [], set()
+
+    def slow(scan):
+        def scan_out_of_turn(*args):
+            with back:
+                n, pause = next(calls), delays.uniform(0.0, 0.005)
+            time.sleep(pause)
+            if n % 3 == 0:
+                # held until the next call is back (or a second has gone
+                # by, for the last): the two finish out of order however
+                # loaded the host is
+                with back:
+                    back.wait_for(lambda: n + 1 in done_calls, timeout=1.0)
+            # one plain scan at a time: threads running it side by side
+            # slow each other many times over on the CPU
+            with one_scan:
+                out = scan(*args)
+            with back:
+                done_calls.add(n)
+                finished.append(out)
+                back.notify_all()
+            return out
+        return scan_out_of_turn
+
+    monkeypatch.setattr(port_ne, "scan_payload", slow(port_ne.scan_payload))
+    monkeypatch.setattr(port_ne, "scan_codes", slow(port_ne.scan_codes))
+    fed = []
+    feed = port_ne.NativeExtractor._feed
+    monkeypatch.setattr(port_ne.NativeExtractor, "_feed",
+                        lambda self, res: (fed.append(res), feed(self, res)))
+    ne = port_ne.NativeExtractor(PortBam(path), 0.8, 40,
+                                 med if at_creation else None,
+                                 batch_records=16, rows_per_batch=4)
+    stats = {}
+    got = ne.run(CPU * 3, depth=16, stats=stats)
+    assert got.data.tobytes() == want.data.tobytes()
+    assert got.qnames == want.qnames and len(got) > 0
+    assert ne.median == med
+    # the scans came back out of order, and were fed in the order made;
+    # batches without scan rows were fed between them
+    scanned = [r for r in fed if r is not None]
+    assert len(scanned) == stats["n_batches"] >= 8
+    assert len(fed) > len(scanned)
+    assert [id(r) for r in finished] != [id(r) for r in scanned]
 
 
 def _held_bam(path):
